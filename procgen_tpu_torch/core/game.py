@@ -1,0 +1,670 @@
+"""Game base classes: per-env state + the shared grid-game step.
+
+The counterpart of ``procgen_tpu.core.game``.  A game is a plain Python
+class holding static configuration; all dynamic data lives in
+``BasicState``, a dataclass of batch-first tensors with the JAX package's
+field names, dtypes and per-env shapes behind a leading ``[N]`` axis.  The
+port carries the subset of ``BasicAbstractGame`` that maze reaches:
+grid-step movement, the vectorised collision dispatch, erase, the reset
+path's RNG helpers and ``game_reset_base``.  Physics paths the other games
+need (sub-stepped movers, the entity scan, push chains) are queued in
+ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from . import rng
+from .constants import INVALID_OBJ, PLAYER, SPACE, WALL_OBJ
+from .entities import Entities, default_fields
+from .options import GameOptions
+
+f32 = torch.float32
+i32 = torch.int32
+
+
+def _where(cond, a, b):
+    """torch.where with ``cond`` [N] broadcast over trailing dims."""
+    if torch.is_tensor(a) and a.dim() > cond.dim():
+        cond = cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim()))
+    return torch.where(cond, a, b)
+
+
+def tree_map(fn, *trees):
+    """Leaf-wise map over (nested) dataclasses of tensors; None stays None."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if torch.is_tensor(t0):
+        return fn(*trees)
+    if dataclasses.is_dataclass(t0):
+        return dataclasses.replace(t0, **{
+            f.name: tree_map(fn, *[getattr(t, f.name) for t in trees])
+            for f in dataclasses.fields(t0)
+        })
+    raise TypeError(f"unsupported tree node {type(t0)}")
+
+
+def tree_where(cond, a, b):
+    """Per-env select of two state trees (``cond`` is [N]); the
+    counterpart of ``_tree_select`` in procgen_tpu/parallel/vec.py."""
+    return tree_map(lambda x, y: x if x is y else _where(cond, x, y), a, b)
+
+
+@dataclasses.dataclass
+class BasicState:
+    """All dynamic per-env state (Game + BasicAbstractGame fields)."""
+
+    # Game (game.h:64-134)
+    level_seed_rand_gen: rng.MTState
+    rand_gen: rng.MTState
+    current_level_seed: torch.Tensor
+    prev_level_seed: torch.Tensor
+    episodes_remaining: torch.Tensor
+    episode_done: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    level_complete: torch.Tensor
+    action: torch.Tensor
+    cur_time: torch.Tensor
+    last_reward_timer: torch.Tensor
+    last_reward: torch.Tensor
+    total_reward: torch.Tensor
+    reset_count: torch.Tensor
+    # BasicAbstractGame (basic-abstract-game.h:121-168)
+    grid: torch.Tensor  # int32 [N, Hmax, Wmax]
+    main_width: torch.Tensor
+    main_height: torch.Tensor
+    ents: Entities
+    bg_pct_x: torch.Tensor
+    background_index: torch.Tensor
+    last_move_action: torch.Tensor
+    move_action: torch.Tensor
+    special_action: torch.Tensor
+    mixrate: torch.Tensor
+    maxspeed: torch.Tensor
+    max_jump: torch.Tensor
+    action_vx: torch.Tensor
+    action_vy: torch.Tensor
+    action_vrot: torch.Tensor
+    step_rand_int: torch.Tensor
+    visibility: torch.Tensor
+    step_draws: torch.Tensor = None
+    decor: Optional[Entities] = None
+    # cached static render prefix, uint8 [N, 64, 64, 3] (static_prefix games)
+    frame: Any = None
+    bg_canvas: Any = None
+    game: Any = None
+
+    def replace(self, **kw) -> "BasicState":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def num(self) -> int:
+        return self.reward.shape[0]
+
+
+class BasicAbstractGame:
+    """Static game definition + batched transition functions."""
+
+    name = "abstract"
+
+    WORLD_DIM_MAX: tuple[int, int] = (64, 64)  # (Wmax, Hmax)
+    ENT_CAP: int = 64
+    MAX_STEP_DRAWS: int = 64
+    MAX_SUB_STEPS: int = 8
+    GRID_COLLISION_RANGE: int = 2
+    ENTITY_SCAN: bool = False
+    ENTITY_SCAN_NONAGENT: bool = False
+    ONLY_AGENT_SMART: bool = True
+    SMART_VECTORIZABLE: bool = True
+    DECOR_CAP: int = 0
+    DECOR_TYPES: frozenset = frozenset(range(54, 60))
+    ENT_Z_LEVELS: tuple = (0, 1)
+    DECOR_Z_LEVELS: tuple = (0,)
+    PALLAS_BG: str = "standard"
+    STATIC_RENDER_PREFIX: bool = False
+    ANY_COLLIDES_WITH_ENTITIES: bool = False
+    DISPATCH_VECTORIZED: bool = False
+    GRID_HANDLER_AGENT_ONLY: bool = True
+
+    @property
+    def static_prefix(self) -> bool:
+        """Cache the bg+grid+cell render prefix per level (see
+        procgen_tpu/core/game.py:196-207)."""
+        return (
+            self.STATIC_RENDER_PREFIX
+            and not self.center_agent
+            and self.PALLAS_BG != "scroll"
+            and all(z >= 0 for z in self.ENT_Z_LEVELS)
+            and all(z >= 0 for z in self.DECOR_Z_LEVELS)
+        )
+
+    def __init__(self, options: GameOptions):
+        self.options = options
+        # Game ctor (game.cpp:46-60)
+        self.timeout = 1000
+        self.default_action = 0
+        self.fixed_asset_seed = 0
+        self.grid_step = False
+        self.level_seed_low = 0
+        self.level_seed_high = 1
+        self.game_type = 0
+        # BasicAbstractGame ctor (basic-abstract-game.cpp:22-46)
+        self.char_dim = 5.0
+        self.visibility = 16.0
+        self.min_visibility = 0.0
+        self.mixrate = 0.5
+        self.maxspeed = 0.5
+        self.max_jump = 0.5
+        self.default_action = 4
+        self.bg_tile_ratio = 0.0
+        self.out_of_bounds_object = INVALID_OBJ
+        self.has_useful_vel_info = True
+        self.random_agent_start = True
+        self.center_agent = options.center_agent
+
+    # ------------------------------------------------------------------
+    # capacities / assets
+    # ------------------------------------------------------------------
+
+    @property
+    def uses_procgen_background(self) -> bool:
+        return self.options.use_generated_assets or not self.background_names()
+
+    def num_backgrounds(self) -> int:
+        if self.uses_procgen_background:
+            return 1
+        return len(self.background_names())
+
+    def background_names(self) -> list[str]:
+        return []
+
+    RESERVED_ASSETS = {
+        54: ["misc_assets/explosion1.png"],
+        55: ["misc_assets/explosion2.png"],
+        56: ["misc_assets/explosion3.png"],
+        57: ["misc_assets/explosion4.png"],
+        58: ["misc_assets/explosion5.png"],
+        59: ["misc_assets/iconCircle_white.png"],
+    }
+
+    def asset_for_type(self, type_: int) -> list[str]:
+        return []
+
+    def asset_names(self, type_: int) -> list[str]:
+        if self.options.use_generated_assets:
+            return []
+        names = self.asset_for_type(type_)
+        if not names:
+            names = self.RESERVED_ASSETS.get(type_, [])
+        return names
+
+    # ------------------------------------------------------------------
+    # virtual hooks (override per game)
+    # ------------------------------------------------------------------
+
+    def choose_world_dim(self, s: BasicState) -> BasicState:
+        return s
+
+    def game_reset(self, s: BasicState) -> BasicState:
+        raise NotImplementedError
+
+    def game_step(self, s: BasicState, d: rng.Draws):
+        raise NotImplementedError
+
+    def game_init_state(self, n: int, device) -> Any:
+        return None
+
+    def is_blocked(self, s, src_type, target_type, is_horizontal):
+        """basic-abstract-game.cpp:494-501."""
+        blocked = target_type == WALL_OBJ
+        blocked |= target_type == self.out_of_bounds_object
+        return blocked
+
+    def will_reflect(self, src_type, target_type):
+        return torch.zeros_like(target_type, dtype=torch.bool)
+
+    def handle_agent_collision_vec(self, s, d, hit):
+        return s, d
+
+    def dispatch_entity_pairs(self, s, d):
+        return s, d
+
+    def set_action_xy(self, s: BasicState, move_action) -> BasicState:
+        """basic-abstract-game.cpp:667-671."""
+        return s.replace(
+            action_vx=(torch.div(move_action, 3, rounding_mode="floor") - 1).to(f32),
+            action_vy=(torch.remainder(move_action, 3) - 1).to(f32),
+            action_vrot=torch.zeros_like(s.action_vrot),
+        )
+
+    def should_draw_entity_mask(self, s: BasicState):
+        return torch.ones_like(s.ents.will_erase, dtype=torch.bool)
+
+    def image_for_type(self, s, type_):
+        """cpp:446-448."""
+        return torch.abs(type_)
+
+    def theme_for_grid_obj(self, s, type_):
+        return torch.zeros_like(type_, dtype=i32)
+
+    def entity_tile_ratio(self, s, e):
+        return torch.zeros_like(e.x)
+
+    def adjust_image_rect(self, img, x0, y0, w2, h2):
+        return x0, y0, w2, h2
+
+    def render_overlay(self, s, obs, sx, sy, res, unit, vis):
+        return obs
+
+    def paint_background(self, s, res, sx, sy, bg_atlas):
+        return None
+
+    def grid_cell_colors(self, s, gtype, u, v):
+        """(valid, r, g, b) per cell type (draw_grid_obj)."""
+        theme = self.theme_for_grid_obj(s, gtype)
+        img = self.image_for_type(s, gtype)
+        valid = (gtype != INVALID_OBJ) & (img >= 0) & (img != SPACE)
+        r, g, b = self.color_for_type(img, theme)
+        return valid, r, g, b
+
+    def color_for_type(self, type_, theme):
+        from ..render.assets import monochrome_color
+
+        theme = self.mask_theme(type_, theme)
+        return monochrome_color(torch.remainder(type_.to(i32), 64), theme)
+
+    def should_preserve_type_themes(self, type_):
+        return torch.zeros_like(type_, dtype=torch.bool)
+
+    def mask_theme(self, type_, theme):
+        """mask_theme_if_necessary (cpp:458-462)."""
+        if not self.options.restrict_themes:
+            return theme
+        return torch.where(
+            self.should_preserve_type_themes(type_), theme,
+            torch.zeros_like(theme),
+        )
+
+    # ------------------------------------------------------------------
+    # grid helpers
+    # ------------------------------------------------------------------
+
+    def _grid_read(self, s: BasicState, x, y):
+        """grid[n, y, x] for in-range (clamped) coordinates ``[N, ...]``."""
+        wmax, hmax = self.WORLD_DIM_MAX
+        xc = x.clamp(0, wmax - 1).long()
+        yc = y.clamp(0, hmax - 1).long()
+        flat = s.grid.reshape(s.grid.shape[0], -1)
+        idx = (yc * wmax + xc).reshape(flat.shape[0], -1)
+        return flat.gather(1, idx).reshape(x.shape)
+
+    def get_obj(self, s: BasicState, x, y):
+        """Bounds-checked grid read (basic-abstract-game.cpp:180-185);
+        ``x``/``y`` are int ``[N]`` or ``[N, ...]`` tensors."""
+        x = x.to(i32)
+        y = y.to(i32)
+        mw = s.main_width.reshape((-1,) + (1,) * (x.dim() - 1))
+        mh = s.main_height.reshape((-1,) + (1,) * (x.dim() - 1))
+        inb = (x >= 0) & (x < mw) & (y >= 0) & (y < mh)
+        val = self._grid_read(s, x, y)
+        return torch.where(inb, val, self.out_of_bounds_object)
+
+    def set_obj_where(self, s: BasicState, x, y, v, cond) -> BasicState:
+        """grid[n, y, x] = v where ``cond`` (``x``/``y`` in bounds there)."""
+        wmax, hmax = self.WORLD_DIM_MAX
+        flat = s.grid.reshape(s.grid.shape[0], -1)
+        idx = (y.clamp(0, hmax - 1) * wmax + x.clamp(0, wmax - 1)).long()
+        old = flat.gather(1, idx[:, None])[:, 0]
+        new = torch.where(cond, torch.as_tensor(v, dtype=i32, device=old.device), old)
+        flat = flat.clone()
+        flat.scatter_(1, idx[:, None], new[:, None])
+        return s.replace(grid=flat.reshape(s.grid.shape))
+
+    def get_obj_grid22(self, s: BasicState, fxs, fys):
+        """get_obj_from_floats at the 2x2 outer grid of float coords
+        ``fxs``/``fys`` ([N, 2] each); returns [N, 2(y), 2(x)]."""
+        x = torch.floor(fxs).to(i32)
+        y = torch.floor(fys).to(i32)
+        inb_x = (x >= 0) & (x < s.main_width[:, None])
+        inb_y = (y >= 0) & (y < s.main_height[:, None])
+        vals = self._grid_read(
+            s, x[:, None, :].expand(-1, 2, 2), y[:, :, None].expand(-1, 2, 2)
+        )
+        ok = inb_y[:, :, None] & inb_x[:, None, :]
+        neg = (fys < 0)[:, :, None] | (fxs < 0)[:, None, :]
+        return torch.where(ok & ~neg, vals, self.out_of_bounds_object)
+
+    def fill_elem(self, s: BasicState, x, y, dx, dy, elem) -> BasicState:
+        """Rectangle fill (basic-abstract-game.cpp:125-131); x/y/dx/dy are
+        ints or [N] tensors."""
+        dev = s.grid.device
+        gx = torch.arange(self.WORLD_DIM_MAX[0], device=dev)[None, None, :]
+        gy = torch.arange(self.WORLD_DIM_MAX[1], device=dev)[None, :, None]
+
+        def col(v):
+            v = torch.as_tensor(v, device=dev)
+            return v.reshape(-1, 1, 1) if v.dim() else v
+
+        x, y, dx, dy = col(x), col(y), col(dx), col(dy)
+        m = (gx >= x) & (gx < x + dx) & (gy >= y) & (gy < y + dy)
+        m &= (gx < col(s.main_width)) & (gy < col(s.main_height))
+        return s.replace(grid=torch.where(m, elem, s.grid).to(i32))
+
+    def is_out_of_bounds_mask(self, s):
+        """cpp:1077-1093, vectorised over slots ([N, cap])."""
+        e = s.ents
+        w = s.main_width.to(f32)[:, None]
+        h = s.main_height.to(f32)[:, None]
+        return (e.x + e.rx < 0) | (e.y + e.ry < 0) | (e.x - e.rx > w) | (
+            e.y - e.ry > h
+        )
+
+    def has_agent_collision_mask(self, s):
+        """has_agent_collision for every slot (cpp:1135-1140)."""
+        e = s.ents
+        tx = e.rx[:, :1] + e.rx + e.collision_margin
+        ty = e.ry[:, :1] + e.ry + e.collision_margin
+        m = (torch.abs(e.x[:, :1] - e.x) < tx) & (torch.abs(e.y[:, :1] - e.y) < ty)
+        return m & e.active & (e.type != PLAYER)
+
+    # ------------------------------------------------------------------
+    # movement (cpp:278-380, 602-665), agent record of [N] tensors
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _rec_of(e: Entities, slot: int) -> dict:
+        return {
+            "x": e.x[:, slot], "y": e.y[:, slot], "vx": e.vx[:, slot],
+            "vy": e.vy[:, slot], "rx": e.rx[:, slot], "ry": e.ry[:, slot],
+            "type": e.type[:, slot], "will_erase": e.will_erase[:, slot],
+        }
+
+    def _sub_step_rec(self, s, rec, vx, vy):
+        """One axis-aligned micro-move without the entity scan (maze's
+        ENTITY_SCAN is False).  Returns (rec, blocked)."""
+        if self.ENTITY_SCAN:
+            raise NotImplementedError("entity scan not ported (ROADMAP)")
+        skip = rec["will_erase"]
+        nx = rec["x"] + vx
+        ny = rec["y"] + vy
+        margin = 0.98
+        horiz = vx != 0
+
+        pxs = torch.stack([nx - rec["rx"] * margin, nx + rec["rx"] * margin], 1)
+        pys = torch.stack([ny - rec["ry"] * margin, ny + rec["ry"] * margin], 1)
+        t22 = self.get_obj_grid22(s, pxs, pys)  # [N, 2(y), 2(x)]
+        block = self.is_blocked(s, rec["type"][:, None, None], t22, horiz).flatten(1).any(1)
+        reflect = self.will_reflect(rec["type"][:, None, None], t22).flatten(1).any(1)
+
+        rx_, ry_ = rec["rx"], rec["ry"]
+        dx_ref = torch.where(
+            vx < 0, torch.ceil(nx - rx_) - (nx - rx_),
+            torch.floor(nx + rx_) - (nx + rx_),
+        )
+        dy_ref = torch.where(
+            vy < 0, torch.ceil(ny - ry_) - (ny - ry_),
+            torch.floor(ny + ry_) - (ny + ry_),
+        )
+        nx_ref = nx + 2 * dx_ref
+        ny_ref = ny + 2 * dy_ref
+        if self.grid_step:
+            nx_blk, ny_blk = rec["x"], rec["y"]
+        else:
+            nx_blk = torch.where(
+                vx > 0, torch.floor(nx + rx_) - rx_, torch.ceil(nx - rx_) + rx_
+            )
+            ny_blk = torch.where(
+                vy > 0, torch.floor(ny + ry_) - ry_, torch.ceil(ny - ry_) + ry_
+            )
+        vert = ~horiz
+        new = dict(rec)
+        new["x"] = torch.where(
+            reflect, torch.where(horiz, nx_ref, nx),
+            torch.where(block & horiz, nx_blk, nx),
+        )
+        new["y"] = torch.where(
+            reflect, torch.where(horiz, ny, ny_ref),
+            torch.where(block & vert, ny_blk, ny),
+        )
+        new["vx"] = torch.where(reflect & horiz, -rec["vx"], rec["vx"])
+        new["vy"] = torch.where(reflect & vert, -rec["vy"], rec["vy"])
+        rec = {k: torch.where(skip, rec[k], new[k]) for k in rec}
+        blocked = torch.where(skip, False, block)
+        return rec, blocked
+
+    def _basic_step_rec(self, s, rec):
+        """basic_step_object on the agent record (cpp:602-665).  The JAX
+        while_loop runs to the batch max of num_sub with per-env masking;
+        a static loop of MAX_SUB_STEPS masked iterations is the same."""
+        if self.grid_step:
+            num_sub = torch.ones_like(rec["type"])
+            max_sub = 1
+        else:
+            speed = torch.sqrt(rec["vx"] ** 2 + rec["vy"] ** 2)
+            num_sub = torch.clamp_min((4 * speed).to(i32), 4)
+            max_sub = self.MAX_SUB_STEPS
+        num_sub_f = num_sub.to(f32)
+        pct = torch.ones_like(num_sub_f) / num_sub_f
+
+        cmp = torch.abs(rec["vx"]) - torch.abs(rec["vy"])
+        step_x_first = torch.where(
+            cmp == 0, torch.remainder(s.step_rand_int, 2) == 0, cmp > 0
+        )
+        is_player_t = rec["type"] == PLAYER
+        step_x_first = torch.where(
+            is_player_t & (s.action_vx != 0), True, step_x_first
+        )
+        step_x_first = torch.where(
+            is_player_t & (s.action_vy != 0), False, step_x_first
+        )
+
+        def axis(rec, horiz_axis):
+            v = torch.where(horiz_axis, rec["vx"] * pct, rec["vy"] * pct)
+            zero = torch.zeros_like(v)
+            vx_ = torch.where(horiz_axis, v, zero)
+            vy_ = torch.where(horiz_axis, zero, v)
+            return self._sub_step_rec(s, rec, vx_, vy_)
+
+        vx_pct = torch.zeros_like(pct)
+        vy_pct = torch.zeros_like(pct)
+        broken = torch.zeros_like(step_x_first)
+        for si in range(max_sub):
+            live = (si < num_sub) & ~broken
+            r1, b1 = axis(rec, step_x_first)
+            rec2, b2 = axis(r1, ~step_x_first)
+            bx = torch.where(step_x_first, b1, b2)
+            by = torch.where(step_x_first, b2, b1)
+            rec = {k: torch.where(live, rec2[k], rec[k]) for k in rec}
+            vx_pct = vx_pct + torch.where(live & ~bx, 1.0, 0.0)
+            vy_pct = vy_pct + torch.where(live & ~by, 1.0, 0.0)
+            broken = broken | (live & bx & by)
+        rec = dict(rec)
+        rec["vx"] = rec["vx"] * (vx_pct / num_sub_f)
+        rec["vy"] = rec["vy"] * (vy_pct / num_sub_f)
+        return rec
+
+    def basic_step_object_agent(self, s: BasicState) -> BasicState:
+        """Move the agent (slot 0)."""
+        rec0 = self._rec_of(s.ents, 0)
+        rec = self._basic_step_rec(s, rec0)
+        skip = rec0["will_erase"]
+        rec = {k: torch.where(skip, rec0[k], rec[k]) for k in rec}
+        return s.replace(
+            ents=s.ents.set_fields(
+                0, x=rec["x"], y=rec["y"], vx=rec["vx"], vy=rec["vy"]
+            )
+        )
+
+    # ------------------------------------------------------------------
+    # per-step pipeline (cpp:695-755)
+    # ------------------------------------------------------------------
+
+    def step_entities(self, s: BasicState):
+        """cpp:1095-1107: non-agent Entity::step, then the agent moves and
+        steps last."""
+        if not self.ONLY_AGENT_SMART:
+            raise NotImplementedError("smart non-agent movers not ported")
+        slots = torch.arange(s.ents.cap, device=s.grid.device)
+        nonagent = (slots != 0)[None, :]
+        s = s.replace(ents=s.ents.step_masked(s.ents.active & nonagent))
+        if self.DECOR_CAP:
+            s = s.replace(decor=s.decor.step_all())
+        s = self.basic_step_object_agent(s)
+        s = s.replace(ents=s.ents.step_masked(s.ents.active & ~nonagent))
+        return s
+
+    def dispatch_collisions(self, s: BasicState, d):
+        """cpp:728-750, the phased vectorised dispatch of games whose
+        handlers commute (DISPATCH_VECTORIZED).  The exact reverse scan of
+        the other games is queued in ROADMAP.md."""
+        if not self.DISPATCH_VECTORIZED:
+            raise NotImplementedError("sequential collision scan not ported")
+        hit = self.has_agent_collision_mask(s)
+        s, d = self.handle_agent_collision_vec(s, d, hit)
+        if self.ANY_COLLIDES_WITH_ENTITIES:
+            s, d = self.dispatch_entity_pairs(s, d)
+        if type(self).handle_grid_collision is not BasicAbstractGame.handle_grid_collision:
+            raise NotImplementedError("grid collision handlers not ported")
+        return s, d
+
+    def handle_grid_collision(self, s, d, slot, type_, ix, iy):
+        return s, d
+
+    def erase_if_needed(self, s: BasicState) -> BasicState:
+        """cpp:757-765."""
+        e = s.ents
+        oob = self.is_out_of_bounds_mask(s)
+        keep = ~(e.will_erase | (e.auto_erase & oob))
+        s = s.replace(ents=e.compact(keep))
+        if self.DECOR_CAP:
+            raise NotImplementedError("decor pool not ported")
+        return s
+
+    def game_step_base(self, s: BasicState, d: rng.Draws):
+        """BasicAbstractGame::game_step head + movement + dispatch
+        (cpp:695-755)."""
+        d, sri = d.randint(0, 1000000)
+        s = s.replace(step_rand_int=sri)
+
+        move_action = torch.remainder(s.action, 9)
+        special = torch.where(s.action >= 9, s.action - 8, 0).to(i32)
+        move_action = torch.where(s.action >= 9, 4, move_action).to(i32)
+        last_move = torch.where(move_action != 4, move_action, s.last_move_action)
+        zf = torch.zeros_like(s.action_vx)
+        s = s.replace(
+            move_action=move_action,
+            special_action=special,
+            last_move_action=last_move,
+            action_vrot=zf,
+            action_vx=zf,
+            action_vy=zf,
+        )
+        s = self.set_action_xy(s, move_action)
+
+        if self.grid_step:
+            s = s.replace(
+                ents=s.ents.set_fields(0, vx=s.action_vx, vy=s.action_vy)
+            )
+        else:
+            raise NotImplementedError("continuous agent velocity not ported")
+
+        s = self.step_entities(s)
+        s, d = self.dispatch_collisions(s, d)
+        s = self.erase_if_needed(s)
+        s = s.replace(done=s.done | self.is_out_of_bounds_mask(s)[:, 0])
+        return s, d
+
+    # ------------------------------------------------------------------
+    # reset-path helpers (checked RNG)
+    # ------------------------------------------------------------------
+
+    def rand01(self, s: BasicState):
+        g, v = rng.rand01(s.rand_gen)
+        return s.replace(rand_gen=g), v
+
+    def randn(self, s: BasicState, n):
+        g, v = rng.randn(s.rand_gen, n)
+        return s.replace(rand_gen=g), v
+
+    def randint(self, s: BasicState, lo, hi):
+        g, v = rng.randint(s.rand_gen, lo, hi)
+        return s.replace(rand_gen=g), v
+
+    def randbool(self, s: BasicState):
+        g, v = rng.randbool(s.rand_gen)
+        return s.replace(rand_gen=g), v
+
+    def randrange(self, s: BasicState, lo, hi):
+        g, v = rng.randrange(s.rand_gen, lo, hi)
+        return s.replace(rand_gen=g), v
+
+    def game_reset_base(self, s: BasicState) -> BasicState:
+        """BasicAbstractGame::game_reset (cpp:767-806)."""
+        n = s.num
+        dev = s.grid.device
+        s = self.choose_world_dim(s)
+        s, bg_pct = self.rand01(s)
+
+        def full(v, dtype):
+            return torch.full((n,), v, dtype=dtype, device=dev)
+
+        s = s.replace(
+            bg_pct_x=bg_pct,
+            grid=torch.zeros_like(s.grid),
+            mixrate=full(self.mixrate, f32),
+            maxspeed=full(self.maxspeed, f32),
+            max_jump=full(self.max_jump, f32),
+            visibility=full(self.visibility, f32),
+        )
+        s, bgi = self.randn(s, self.num_backgrounds())
+        s = s.replace(background_index=bgi)
+        if self.uses_procgen_background:
+            raise NotImplementedError("procedural backgrounds not ported")
+
+        ents = Entities.zeros(n, self.ENT_CAP, dev)
+        if self.DECOR_CAP:
+            raise NotImplementedError("decor pool not ported")
+        a_r = 0.4
+        if self.random_agent_start:
+            s, r1 = self.rand01(s)
+            s, r2 = self.rand01(s)
+            a_r32 = torch.tensor(a_r, dtype=f32, device=dev)
+            ax = r1 * (s.main_width.to(f32) - 2 * a_r32) + a_r32
+            ay = r2 * (s.main_height.to(f32) - 2 * a_r32) + a_r32
+        else:
+            ax = a_r
+            ay = a_r
+        agent = default_fields(ax, ay, 0.0, 0.0, a_r, a_r, PLAYER)
+        agent["smart_step"] = True
+        agent["render_z"] = 1
+        ents = ents.push(agent)
+        s = s.replace(ents=ents)
+        s = self.fill_elem(s, 0, 0, s.main_width, s.main_height, SPACE)
+        return s
+
+    # ------------------------------------------------------------------
+    # misc queries used by games
+    # ------------------------------------------------------------------
+
+    def cells_with_type_mask(self, s, type_):
+        """[N, Hmax, Wmax] mask of in-bounds cells with the given type."""
+        dev = s.grid.device
+        gx = torch.arange(self.WORLD_DIM_MAX[0], device=dev)[None, None, :]
+        gy = torch.arange(self.WORLD_DIM_MAX[1], device=dev)[None, :, None]
+        inb = (gx < s.main_width[:, None, None]) & (gy < s.main_height[:, None, None])
+        return inb & (s.grid == type_)
+
+
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis, 0 when none (what
+    ``jnp.argmax`` returns on a bool array)."""
+    n = mask.shape[-1]
+    ar = torch.arange(n, device=mask.device).expand_as(mask)
+    idx = torch.where(mask, ar, n).amin(dim=-1)
+    return torch.where(idx == n, 0, idx)

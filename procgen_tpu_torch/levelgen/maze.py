@@ -1,0 +1,175 @@
+"""Kruskal maze generation, batched over envs (reference:
+procgen/src/mazegen.cpp; JAX counterpart procgen_tpu/levelgen/maze.py).
+
+The C++ loop draws ``randn(walls.size())`` every iteration and erases that
+wall whether or not it is removed, so the draw count equals the wall count.
+Every env runs the same static number of iterations (the wall list of the
+largest maze); iterations past an env's own wall count are masked off, as
+the JAX ``fori_loop`` masks them.  Union-find sets are the per-cell set ids
+in ``idxs``; a merge rewrites ids.  The maze grid is flat with the dynamic
+stride ``array_dim = maze_dim + 2`` over a static ``(mdim_max+2)^2``
+buffer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import rng
+from ..core.constants import SPACE, WALL_OBJ
+from ..core.game import first_true
+
+i32 = torch.int32
+
+MAZE_OFFSET = 1  # mazegen.h:14
+
+
+def _wall_candidates(mdim_max: int):
+    """Static wall list in C++ construction order (mazegen.cpp:135-149)."""
+    walls = []  # (x1, y1, x2, y2, kind, i, j); kind 0 = first loop
+    for i in range(1, mdim_max, 2):
+        for j in range(0, mdim_max, 2):
+            walls.append((i - 1, j, i + 1, j, 0, i, j))
+    for i in range(0, mdim_max, 2):
+        for j in range(1, mdim_max, 2):
+            walls.append((i, j - 1, i, j + 1, 1, i, j))
+    return np.asarray(walls, np.int64)
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a[n, idx[n]] for [N, L] ``a`` and [N] ``idx`` (clamped, as a JAX
+    gather clamps)."""
+    idx = idx.long().clamp(0, a.shape[1] - 1)
+    return a.gather(1, idx[:, None])[:, 0]
+
+
+def _put(a: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, cond) -> None:
+    """In place: a[n, idx[n]] = val[n] where ``cond`` (an out-of-range
+    index with ``cond`` False writes back the old value)."""
+    idx = idx.long().clamp(0, a.shape[1] - 1)
+    old = a.gather(1, idx[:, None])[:, 0]
+    a.scatter_(1, idx[:, None], torch.where(cond, val, old).to(a.dtype)[:, None])
+
+
+def generate_maze(g: rng.MTState, maze_dim: torch.Tensor, mdim_max: int):
+    """Returns (g, grid, free_cells, num_free, in_free); ``maze_dim`` is
+    int32 [N]; grid is int32 [N, (mdim_max+2)^2] with stride array_dim."""
+    dev = maze_dim.device
+    n = maze_dim.shape[0]
+    adim_max = mdim_max + 2
+    array_dim = maze_dim + 2
+    mcells = mdim_max * mdim_max
+
+    grid = torch.full((n, adim_max * adim_max), WALL_OBJ, dtype=i32, device=dev)
+    _put(grid, MAZE_OFFSET * array_dim + MAZE_OFFSET,
+         torch.zeros_like(maze_dim), torch.ones_like(maze_dim, dtype=torch.bool))
+
+    idxs = torch.arange(mcells, dtype=i32, device=dev).repeat(n, 1)
+    in_free = torch.zeros((n, mcells), dtype=torch.bool, device=dev)
+    num_free = torch.zeros((n,), dtype=i32, device=dev)
+
+    cands = torch.as_tensor(_wall_candidates(mdim_max), device=dev)
+    c = [cands[:, j].to(i32) for j in range(7)]
+    cx1, cy1, cx2, cy2, kind, ci, cj = c
+    md = maze_dim[:, None]
+    valid = torch.where(
+        kind[None, :] == 0,
+        (ci[None, :] < md - 1) & (cj[None, :] < md),
+        (ci[None, :] < md) & (cj[None, :] < md - 1),
+    )
+    # stable compaction keeps C++ ordering among valid walls
+    perm = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    wx1, wy1, wx2, wy2 = (a[perm] for a in (cx1, cy1, cx2, cy2))
+    wall_count = valid.sum(dim=1, dtype=i32)
+    w_static = cands.shape[0]
+
+    assert w_static <= rng.N, "wall list exceeds one MT block"
+    g, wall_draws = rng.draw_n(g, w_static, wall_count)
+
+    # per-wall cell indices, in each env's wall order: cells (x1,y1),
+    # (x0,y0), (x2,y2) in the maze's cell space and in the grid, where
+    # (x0,y0) is the wall between the two cells
+    x0w = torch.div(wx1 + wx2, 2, rounding_mode="floor")
+    y0w = torch.div(wy1 + wy2, 2, rounding_mode="floor")
+    ad = array_dim[:, None]
+    walls = torch.stack([
+        md * wy1 + wx1, md * y0w + x0w, md * wy2 + wx2,
+        (wy1 + MAZE_OFFSET) * ad + (wx1 + MAZE_OFFSET),
+        (y0w + MAZE_OFFSET) * ad + (x0w + MAZE_OFFSET),
+        (wy2 + MAZE_OFFSET) * ad + (wx2 + MAZE_OFFSET),
+    ], dim=2).long()  # [N, W, 6]
+    walls[..., :3].clamp_(0, mcells - 1)
+    walls[..., 3:].clamp_(0, adim_max * adim_max - 1)
+
+    # free_cells gets a trailing scratch column: writes that JAX drops (no
+    # new cell, or past the buffer end) land there
+    free_cells = torch.zeros((n, mcells + 1), dtype=i32, device=dev)
+    trash = torch.full((n, 3), mcells, dtype=torch.int64, device=dev)
+    alive = torch.arange(w_static, device=dev)[None, :] < wall_count[:, None]
+    for t in range(w_static):
+        live = t < wall_count
+        nsel = rng._randn_from(wall_draws[:, t], wall_count - t)
+
+        # select the n-th alive wall in original order, then kill it
+        ranks = torch.cumsum(alive.to(i32), dim=1) - 1
+        sel = alive & (ranks == nsel[:, None])
+        widx = first_true(sel)
+        alive = alive & ~sel
+
+        w = walls.gather(1, widx[:, None, None].expand(-1, 1, 6))[:, 0]
+        cells, gps = w[:, :3], w[:, 3:]
+        s01 = idxs.gather(1, cells[:, 0::2])  # set ids of (x1,y1), (x2,y2)
+        s0_idx, s1_idx = s01[:, 0], s01[:, 1]
+        old = grid.gather(1, gps)
+        can_remove = live & (old[:, 1] == WALL_OBJ) & (s0_idx != s1_idx)
+        cr = can_remove[:, None]
+
+        # set_free_cell for the three cells in order (cpp:27-36); they are
+        # distinct, so each one's "already free" test reads the old flags
+        grid.scatter_(1, gps, torch.where(cr, SPACE, old))
+        fl = in_free.gather(1, cells)
+        isnew = cr & ~fl
+        pos = num_free[:, None] + torch.cumsum(isnew.to(i32), dim=1) - 1
+        ok = isnew & (pos < mcells)
+        free_cells.scatter_(1, torch.where(ok, pos.long(), trash),
+                            cells.to(i32))
+        in_free.scatter_(1, cells, fl | isnew)
+        num_free = num_free + isnew.sum(dim=1, dtype=i32)
+
+        # merge s0 into s1 (+ the wall cell) — cpp:170-177
+        idxs = torch.where(cr & (idxs == s0_idx[:, None]), s1_idx[:, None], idxs)
+        _put(idxs, cells[:, 1], s1_idx, can_remove)
+
+    free_cells = free_cells[:, :mcells].contiguous()
+    return g, grid, free_cells, num_free, in_free
+
+
+def place_objects(g, grid, free_cells, num_free, maze_dim, mdim_max: int,
+                  start_obj: int, num_objs: int):
+    """mazegen.cpp:292-306 — objects on distinct carved cells, excluding
+    the agent corner cell (stored cell id 0).  The redraw loop runs while
+    any env still needs a draw, each env drawing only while it does (the
+    JAX while_loop under vmap)."""
+    array_dim = maze_dim + 2
+    grid = grid.clone()
+    free_cells = free_cells.clone()
+
+    for j in range(num_objs):
+        g, m = rng.randn(g, num_free)
+        while True:
+            v = _take(free_cells, m)
+            need = (v == -1) | (v == 0)
+            if not bool(need.any()):
+                break
+            g2, m2 = rng.randn(g, num_free)
+            g = rng._sel(need, g2, g)
+            m = torch.where(need, m2, m)
+        cell = _take(free_cells, m)
+        _put(free_cells, m, torch.full_like(m, -1), torch.ones_like(need))
+        gp = (torch.div(cell, maze_dim, rounding_mode="floor") + MAZE_OFFSET) * array_dim + (
+            torch.remainder(cell, maze_dim) + MAZE_OFFSET
+        )
+        _put(grid, gp, torch.full_like(gp, start_obj + j), torch.ones_like(need))
+
+    return g, grid, free_cells

@@ -1,0 +1,245 @@
+"""Vectorized env runtime: N lockstep envs of one game as torch tensors.
+
+The counterpart of ``procgen_tpu.parallel.vec``.  A step is
+``env_step`` over the whole batch, the auto-reset of finished envs, and
+the frame render.  Level generation is the expensive part of a reset, so
+finished envs consume a precomputed next-level state from a pool (a
+select), and the pool is replenished at most one K-wide chunk per step
+(the hybrid pacing of the JAX package).  Where JAX branches on device
+(``lax.cond``/``while_loop``), the port reads the condition on the host:
+one synchronisation per decision.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import lifecycle
+from ..core.constants import INT32_MAX, fnv1a_32
+from ..core.game import BasicAbstractGame, tree_map, tree_where
+from ..utils.host_mt import HostMT19937
+
+i32 = torch.int32
+
+# replenish backstop period of the hybrid pacing (procgen_tpu/parallel/
+# vec.py:282, :352-368)
+REPLENISH_BACKSTOP = 8
+
+
+def render_batch(game, states, res: int = 64):
+    """Batched observation render: the frame kernel's path (CUDA kernel on
+    CUDA states, its plain version on CPU states)."""
+    from ..render import render_kernel
+
+    return render_kernel.render_obs_batch(game, states, res)
+
+
+def _tree_gather(tree, idx):
+    return tree_map(lambda a: a[idx], tree)
+
+
+def _tree_scatter(tree, idx, sub):
+    def put(a, b):
+        a = a.clone()
+        a[idx] = b
+        return a
+
+    return tree_map(put, tree, sub)
+
+
+def reset_pending(game: BasicAbstractGame, states, pending):
+    """Reset envs where ``pending``.  ``env_reset`` is per-env pure, so
+    resetting the pending envs as one sub-batch gives what the JAX
+    package's K-at-a-time loop gives."""
+    idx = torch.nonzero(pending).flatten()
+    if idx.numel() == 0:
+        return states
+    sub = lifecycle.env_reset(game, _tree_gather(states, idx))
+    return _tree_scatter(states, idx, sub)
+
+
+# Fields whose post-reset value comes from the FINISHING step's state, not
+# from the precomputed next-level state (procgen_tpu/parallel/vec.py:
+# 115-141): Game::reset keeps step_data on the new-seed branch and never
+# touches the episode-crossing bookkeeping.
+_KEEP_LIVE_ON_RESET = (
+    "reward",
+    "done",
+    "step_draws",
+    "level_complete",
+    "episode_done",
+    "prev_level_seed",
+    "last_reward",
+    "last_reward_timer",
+    "last_move_action",
+    "move_action",
+    "special_action",
+    "action_vx",
+    "action_vy",
+    "action_vrot",
+    "step_rand_int",
+)
+
+
+def splice_pool(pool, states):
+    """The post-reset state an env gets from its precomputed pool entry:
+    everything from the pool except the episode-crossing fields."""
+    return pool.replace(**{f: getattr(states, f) for f in _KEEP_LIVE_ON_RESET})
+
+
+def replenish_pool(game: BasicAbstractGame, states, pool, valid, k: int,
+                   max_iters: Optional[int] = None):
+    """Rebuild next-level pool entries for invalid slots, K at a time (at
+    most ``max_iters`` chunks): each chunk is the first K invalid slots in
+    env order, rebuilt from the live states."""
+    it = 0
+    while max_iters is None or it < max_iters:
+        inval = torch.nonzero(~valid).flatten()
+        if inval.numel() == 0:
+            break
+        idx = inval[:k]
+        new_sub = lifecycle.env_reset(game, _tree_gather(states, idx))
+        pool = _tree_scatter(pool, idx, new_sub)
+        valid = valid.clone()
+        valid[idx] = True
+        it += 1
+    return pool, valid
+
+
+@dataclasses.dataclass
+class Carry:
+    """The step carry of the pooled runtime: live states, next-level pool,
+    pool validity and the step counter (a host int)."""
+
+    states: object
+    pool: object
+    valid: Optional[torch.Tensor]
+    t: int
+
+
+def step_pool(game, carry: Carry, actions, k: int):
+    """One pooled step (procgen_tpu/parallel/vec.py step_pool_core and
+    __graft_entry__._make_env_fns): logic, pool consumption, in-step
+    resets for pool misses, the hybrid replenish.  Returns the new carry;
+    rendering is the caller's."""
+    states, needs_reset = lifecycle.env_step(game, carry.states, actions)
+    use = needs_reset & carry.valid
+    states = tree_where(use, splice_pool(carry.pool, states), states)
+    valid = carry.valid & ~needs_reset
+    states = reset_pending(game, states, needs_reset & ~use)
+    t = carry.t
+    due = (t % REPLENISH_BACKSTOP) == REPLENISH_BACKSTOP - 1 or bool(
+        (~valid).sum() >= k
+    )
+    pool = carry.pool
+    if due:
+        pool, valid = replenish_pool(game, states, pool, valid, k, max_iters=1)
+    return Carry(states, pool, valid, t + 1)
+
+
+class TorchVecGame:
+    """N lockstep envs of one game on one torch device; the counterpart of
+    ``procgen_tpu.parallel.vec.JaxVecGame`` (no mesh, joint games or state
+    blobs yet)."""
+
+    def __init__(
+        self,
+        num: int,
+        game: BasicAbstractGame,
+        rand_seed: int,
+        num_levels: int = 0,
+        start_level: int = 0,
+        device="cpu",
+    ):
+        self.num = num
+        self.game = game
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not available")
+
+        # level seed range (vecgame.cpp:330-341)
+        if num_levels == 0:
+            game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        else:
+            game.level_seed_low = start_level
+            game.level_seed_high = start_level + num_levels
+        if game.fixed_asset_seed == 0:
+            game.fixed_asset_seed = int(np.int32(np.uint32(fnv1a_32(game.name))))
+
+        # per-env level_seed_rand_gen seeds from the master stream
+        # (vecgame.cpp:349-363)
+        master = HostMT19937(rand_seed)
+        seeds = np.array([master.next_u32() for _ in range(num)], np.int64)
+        self._k = max(1, min(num, 64))
+        self._use_pool = not game.options.use_sequential_levels
+
+        states = lifecycle.initial_state(game, torch.as_tensor(seeds, device=self.device))
+        states = lifecycle.env_reset(game, states)
+        if self._use_pool:
+            pool = lifecycle.env_reset(game, states)
+            valid = torch.ones((num,), dtype=torch.bool, device=self.device)
+        else:
+            pool = valid = None
+        self.carry = Carry(states, pool, valid, 0)
+        self._cached = None
+        self._cached_for = None
+
+    @property
+    def states(self):
+        return self.carry.states
+
+    def _info_impl(self, states):
+        info = {
+            "prev_level_seed": states.prev_level_seed,
+            "prev_level_complete": states.level_complete.to(torch.uint8),
+            "level_seed": states.current_level_seed,
+        }
+        if hasattr(self.game, "latent_info"):
+            info.update(self.game.latent_info(states))
+        return info
+
+    def _observe_impl(self, states):
+        obs = render_batch(self.game, states, 64)
+        return obs, states.reward, states.done, self._info_impl(states)
+
+    def act(self, actions) -> None:
+        actions = torch.as_tensor(actions, dtype=i32, device=self.device)
+        if actions.shape != (self.num,):
+            raise ValueError(
+                f"actions must have shape ({self.num},), got {tuple(actions.shape)}"
+            )
+        if self._use_pool:
+            self.carry = step_pool(self.game, self.carry, actions, self._k)
+        else:
+            states, needs_reset = lifecycle.env_step(self.game, self.carry.states, actions)
+            states = reset_pending(self.game, states, needs_reset)
+            self.carry = Carry(states, None, None, self.carry.t + 1)
+        self._cached = self._observe_impl(self.carry.states)
+        self._cached_for = self.carry.states
+
+    def observe(self):
+        """(obs uint8 [N, 64, 64, 3], reward, done, info) of the current
+        states, as device tensors."""
+        if self._cached is None or self._cached_for is not self.carry.states:
+            self._cached = self._observe_impl(self.carry.states)
+            self._cached_for = self.carry.states
+        return self._cached
+
+    def rollout(self, actions):
+        """Step ``k`` times (``actions`` [k, num]); returns (obs, rew,
+        first) stacked [k, num, ...]."""
+        actions = torch.as_tensor(actions, dtype=i32, device=self.device)
+        if actions.dim() != 2 or actions.shape[1] != self.num:
+            raise ValueError(
+                f"actions must have shape (k, {self.num}), got {tuple(actions.shape)}"
+            )
+        outs = []
+        for a in actions:
+            self.act(a)
+            obs, rew, first, _ = self._cached
+            outs.append((obs, rew, first))
+        return tuple(torch.stack(x) for x in zip(*outs))

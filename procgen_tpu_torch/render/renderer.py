@@ -1,0 +1,418 @@
+"""Observation renderer in eager torch, batch-first.
+
+The counterpart of ``procgen_tpu.render.renderer``: the QPainter pipeline
+(basic-abstract-game.cpp:828-1021) as a per-pixel compositor in the
+reference's paint order — background, z=-1 sprites, grid tiles, colored
+cells, z=0 and z=1 sprites.  The JAX package samples with one-hot
+matmuls; every such pick selects one exact u8 texel, so a gather gives the
+same values here.  Every bf16 round trip and every half-to-even round of
+the JAX renderer is kept.
+
+This is the path of the per-level static prefix (``prefix_only``), which
+the JAX package also computes outside its Pallas kernel, and the plain
+oracle of the per-step suffix (``base``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.constants import INVALID_OBJ, SPACE
+
+f32 = torch.float32
+i32 = torch.int32
+bf16 = torch.bfloat16
+u8 = torch.uint8
+
+
+def fdiv(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` for a float constant ``b``, IEEE-rounded on every device.
+
+    A CUDA tensor divided by a Python scalar is computed as a multiply by
+    its reciprocal, which is not the quotient for non-powers of two; a
+    tensor divisor keeps the true division."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
+def rdiv(a: float, b: torch.Tensor) -> torch.Tensor:
+    """``a / b`` for a float constant ``a`` (``a / tensor`` is
+    ``reciprocal(b) * a`` in torch)."""
+    return torch.full_like(b, a) / b
+
+
+def camera(game, s, res: int):
+    """(unit, vis, x_off, y_off) per env ([N] f32): prepare_for_drawing
+    (cpp:828-847) for the static camera."""
+    if game.center_agent:
+        raise NotImplementedError("center_agent camera not ported (ROADMAP)")
+    w = s.main_width.to(f32)
+    h = s.main_height.to(f32)
+    cx = w * 0.5
+    cy = h * 0.5
+    vis = torch.maximum(torch.maximum(w, h), torch.full_like(w, game.min_visibility))
+    unit = rdiv(float(res), vis)
+    x_off = unit * (cx - vis / 2)
+    y_off = unit * (cy - vis / 2)
+    return unit, vis, x_off, y_off
+
+
+def render_obs(game, s, res: int = 64, base=None, prefix_only=False):
+    """Render a batch of env states to uint8 ``[N, res, res, 3]``.
+
+    ``base``: a precomputed static-prefix frame batch (uint8
+    ``[N, res, res, 3]``) — composite only the dynamic suffix on top.
+    ``prefix_only``: render and return just that static prefix.
+    """
+    from .atlas import get_atlases
+
+    n = s.num
+    dev = s.grid.device
+    unit, vis, x_off, y_off = camera(game, s, res)
+    want_prefix = base is None
+    want_suffix = not prefix_only
+
+    sx = (torch.arange(res, dtype=f32, device=dev) + 0.5)[None, :]  # [1, res]
+    sy = (torch.arange(res, dtype=f32, device=dev) + 0.5)[None, :]
+    wxs = (sx + x_off[:, None]) / unit[:, None]  # [N, res] world x per column
+    wys = vis[:, None] - (sy - y_off[:, None]) / unit[:, None]  # per row
+
+    grid_atlas, bg_atlas, ent_atlas = get_atlases(game, res)
+    if ent_atlas is None:
+        raise NotImplementedError("monochrome sprites not ported (ROADMAP)")
+
+    if base is not None:
+        obs = base.to(i32)
+    else:
+        obs = torch.zeros((n, res, res, 3), dtype=i32, device=dev)
+        if game.options.use_backgrounds and bg_atlas is not None:
+            if type(game).paint_background is not _base_paint_background():
+                raise NotImplementedError("custom backgrounds not ported")
+            pix, aspects = bg_atlas.tensors(dev)
+            bi = s.background_index.long().clamp(0, pix.shape[0] - 1)
+            obs = _paint_background(
+                game, s, obs, sx, sy, res, unit, vis, pix, bi, aspects[bi]
+            )
+
+    draw_mask = game.should_draw_entity_mask(s)
+
+    def _wanted(levels):
+        return tuple(z for z in levels if (want_prefix if z < 0 else want_suffix))
+
+    ent_z = _wanted(game.ENT_Z_LEVELS)
+    if game.DECOR_CAP:
+        raise NotImplementedError("decor pool not ported")
+    ents_canv = (
+        _sprite_canvases(game, s, s.ents, draw_mask, ent_atlas, res, unit,
+                         vis, x_off, y_off, sx, sy, ent_z)
+        if ent_z else None
+    )
+
+    def _apply_canvas(obs, canv):
+        canv = canv.to(f32)
+        a = canv[..., 3:]
+        return torch.round(canv[..., :3] + obs.to(f32) * (1 - a)).to(i32)
+
+    def paint_z(obs, zlevel):
+        if ents_canv is not None and zlevel in ent_z:
+            obs = _apply_canvas(obs, ents_canv[ent_z.index(zlevel)])
+        return obs
+
+    if want_prefix:
+        obs = paint_z(obs, -1)
+        # grid pass (cpp:950-964)
+        cellx = torch.floor(wxs).to(i32)  # [N, res]
+        celly = torch.floor(wys).to(i32)
+        wmax, hmax = game.WORLD_DIM_MAX
+        raw = _sample_grid(s.grid, celly, cellx, hmax, wmax, INVALID_OBJ)
+        inb = (
+            ((celly >= 0) & (celly < s.main_height[:, None]))[:, :, None]
+            & ((cellx >= 0) & (cellx < s.main_width[:, None]))[:, None, :]
+        )
+        gtype = torch.where(inb, raw, INVALID_OBJ)
+
+        u = (wxs - torch.floor(wxs))[:, None, :].expand(n, res, res)
+        v = (wys - torch.floor(wys))[:, :, None].expand(n, res, res)
+
+        textured = torch.zeros((n, res, res), dtype=torch.bool, device=dev)
+        if grid_atlas is not None:
+            obs, textured = _paint_grid_tiles(
+                game, s, obs, res, wxs, wys, grid_atlas
+            )
+
+        gvalid, r, g_, b = game.grid_cell_colors(s, gtype, u, v)
+        gvalid = gvalid & ~textured
+        gcol = torch.stack(
+            [torch.as_tensor(c, device=dev).to(i32).expand(n, res, res)
+             for c in (r, g_, b)], dim=-1,
+        )
+        obs = torch.where(gvalid[..., None], gcol, obs)
+
+    if prefix_only:
+        return obs.to(u8)
+
+    obs = paint_z(obs, 0)
+    obs = paint_z(obs, 1)
+    obs = post(game, s, obs, res)
+    return obs.to(u8)
+
+
+def post(game, s, obs, res: int):
+    """paint_vel_info (cpp:969-978) + the game's HUD overlay, on an int32
+    ``[N, res, res, 3]`` frame batch."""
+    dev = obs.device
+    sx = torch.arange(res, dtype=f32, device=dev) + 0.5
+    sy = torch.arange(res, dtype=f32, device=dev) + 0.5
+    if game.options.paint_vel_info and game.has_useful_vel_info:
+        infodim = res * 0.2
+        s1 = to_shade(0.5 * s.ents.vx[:, 0] / s.maxspeed + 0.5)
+        s2 = to_shade(0.5 * s.ents.vy[:, 0] / s.max_jump + 0.5)
+        in_y = (sy < infodim)[:, None]
+        r1 = in_y & (sx < infodim)[None, :]
+        r2 = in_y & ((sx >= infodim) & (sx < 2 * infodim))[None, :]
+        obs = torch.where(r1[None, :, :, None], s1[:, None, None, None], obs)
+        obs = torch.where(r2[None, :, :, None], s2[:, None, None, None], obs)
+    unit, vis, _, _ = camera(game, s, res)
+    return game.render_overlay(s, obs, sx, sy, res, unit, vis)
+
+
+def to_shade(f):
+    """qt-utils.h:21-28."""
+    return torch.clamp((f * 255).to(i32), 0, 255)
+
+
+def _base_paint_background():
+    from ..core.game import BasicAbstractGame
+
+    return BasicAbstractGame.paint_background
+
+
+def _sample_grid(grid, celly, cellx, hmax, wmax, oob_val):
+    """out[n, p, q] = grid[n, celly[n, p], cellx[n, q]]; out-of-range cells
+    read as ``oob_val``."""
+    n = grid.shape[0]
+    yc = celly.clamp(0, hmax - 1).long()
+    xc = cellx.clamp(0, wmax - 1).long()
+    idx = yc[:, :, None] * wmax + xc[:, None, :]
+    vals = grid.reshape(n, -1).gather(1, idx.reshape(n, -1)).reshape(idx.shape)
+    inb = ((celly >= 0) & (celly < hmax))[:, :, None] & (
+        (cellx >= 0) & (cellx < wmax)
+    )[:, None, :]
+    return torch.where(inb, vals, oob_val)
+
+
+def _paint_background(game, s, obs, sx, sy, res, unit, vis, pix, bi, bg_ar):
+    """draw_background (cpp:988-1016): the aspect-preserving crop with the
+    random x offset.  ``pix`` is the atlas [nb, BH, BW, 3] u8, ``bi`` the
+    per-env image index."""
+    BH, BW = pix.shape[1], pix.shape[2]
+    W = s.main_width.to(f32)
+    H = s.main_height.to(f32)
+    cx = W * 0.5
+    cy = H * 0.5
+    x_off = unit * (cx - vis / 2)
+    y_off = unit * (cy - vis / 2)
+    mr_x = -x_off
+    mr_y = (vis - H) * unit + y_off
+    mr_w = W * unit
+    mr_h = H * unit
+    if game.bg_tile_ratio < 0:
+        raise NotImplementedError("tiled backgrounds not ported (ROADMAP)")
+    world_ar = W / H
+    extra_w = bg_ar - world_ar
+    offx = s.bg_pct_x * extra_w
+    bgr_x = mr_x + mr_w * (-offx)
+    bgr_w = mr_w * bg_ar / world_ar
+    c = lambda t: t[:, None]  # noqa: E731  [N] -> [N, 1]
+    row_idx = ((sy - c(mr_y)) / c(mr_h) * BH).to(i32).clamp(0, BH - 1)
+    col_idx = ((sx - c(bgr_x)) / c(bgr_w) * BW).to(i32).clamp(0, BW - 1)
+    in_y = (sy >= c(mr_y)) & (sy < c(mr_y) + c(mr_h))
+    in_x = (sx >= c(bgr_x)) & (sx < c(bgr_x) + c(bgr_w))
+    samp = pix[bi[:, None, None], row_idx.long()[:, :, None],
+               col_idx.long()[:, None, :]]  # [N, res, res, 3]
+    m = (in_y[:, :, None] & in_x[:, None, :])[..., None]
+    return torch.where(m, samp.to(i32), 0)
+
+
+def _sprite_canvases(game, s, pool, mask, atlas, res, unit, vis, x_off,
+                     y_off, sx, sy, z_levels):
+    """Entity sprite pass (draw_entity, cpp:1061-1067), slot by slot in
+    C++ vector order into one premultiplied bf16 canvas per z level;
+    returns [len(z_levels), N, res, res, 4] bf16."""
+    from .atlas import ROT_OVERHANG
+
+    e = pool
+    n, cap = e.x.shape
+    S = atlas.tile_px
+    dev = e.x.device
+    rows = atlas.rows_on(dev)  # [n_rows, S, S, 4] u8
+
+    img_all = game.image_for_type(s, e.image_type)
+    live_all = e.active & (img_all >= 0) & (img_all != SPACE)
+    if mask is not None:
+        live_all = live_all & mask
+    row_all = atlas.row_for(img_all, game.mask_theme(img_all, e.image_theme))
+    tile_ratio_all = game.entity_tile_ratio(s, e)
+
+    c = lambda t: t[:, None]  # noqa: E731
+    x0_w = (e.x - e.rx) * c(unit) - c(x_off)
+    y0_w = (c(vis) - (e.y + e.ry)) * c(unit) + c(y_off)
+    w2_w = 2 * e.rx * c(unit)
+    h2_w = 2 * e.ry * c(unit)
+    x0_a = res * (e.x - e.rx)
+    y0_a = res * (e.y + e.ry)
+    w2_a = 2 * res * e.rx
+    h2_a = 2 * res * e.ry
+    ua = e.use_abs_coords
+    x0_all = torch.where(ua, x0_a, x0_w)
+    y0_all = torch.where(ua, y0_a, y0_w)
+    w2_all = torch.where(ua, w2_a, w2_w)
+    h2_all = torch.where(ua, h2_a, h2_w)
+    x0_all, y0_all, w2_all, h2_all = game.adjust_image_rect(
+        img_all, x0_all, y0_all, w2_all, h2_all
+    )
+
+    fr, fg, fb = game.color_for_type(img_all, e.image_theme)
+    fallback_rgb = torch.stack(
+        [torch.as_tensor(v, device=dev).to(f32).expand(n, cap) for v in (fr, fg, fb)],
+        dim=-1,
+    )  # [N, cap, 3]
+    is_fallback = row_all == atlas.transparent_row
+
+    nz = len(z_levels)
+    canv = torch.zeros((nz, n, res, res, 4), dtype=bf16, device=dev)
+    ones = torch.ones((n, res, res, 1), dtype=f32, device=dev)
+    for i in range(cap):
+        rot = e.rotation[:, i]
+        qf = rot * (2.0 / torch.pi)
+        q = torch.remainder(torch.round(qf).to(i32), 4)
+        arb = torch.abs(qf - torch.round(qf)) > 1e-4
+        brow, has_bank = atlas.bank_row_for(
+            row_all[:, i], e.is_reflected[:, i].to(i32), rot
+        )
+        use_bank = arb & has_bank
+        grow = torch.where(use_bank, ROT_OVERHANG, 1.0).to(f32)
+
+        w2_r, h2_r = w2_all[:, i], h2_all[:, i]
+        x0 = x0_all[:, i] - w2_r * (grow - 1.0) * 0.5
+        y0 = y0_all[:, i] - h2_r * (grow - 1.0) * 0.5
+        w2 = torch.clamp_min(w2_r * grow, 1e-6)
+        h2 = torch.clamp_min(h2_r * grow, 1e-6)
+
+        u = (sx - c(x0)) / c(w2)  # [N, res] along screen x
+        v = (sy - c(y0)) / c(h2)  # [N, res] along screen y
+        xvalid = (u >= 0) & (u < 1)
+        yvalid = (v >= 0) & (v < 1)
+
+        tr = tile_ratio_all[:, i]
+        nt_h = torch.clamp_min((w2 / (h2 * torch.clamp_min(tr, 1e-6))).to(i32), 1)
+        nt_v = torch.clamp_min((h2 / (w2 * torch.clamp_min(-tr, 1e-6))).to(i32), 1)
+        ut = u * c(nt_h.to(f32))
+        vt = v * c(nt_v.to(f32))
+        u_ = torch.where(c(tr > 0), ut - torch.floor(ut), u)
+        v_ = torch.where(c(tr < 0), vt - torch.floor(vt), v)
+
+        ui = (u_ * S).to(i32).clamp(0, S - 1)
+        vi = (v_ * S).to(i32).clamp(0, S - 1)
+
+        use_t = ((q == 1) | (q == 3)) & ~use_bank
+        rowflip = ((q == 2) | (q == 3)) & ~use_bank
+        colflip = ((q == 1) | (q == 2)) & ~use_bank
+
+        row_i = torch.where(use_bank, brow, row_all[:, i]).long()
+        row_i = row_i.clamp(0, rows.shape[0] - 1)
+        row_idx = torch.where(c(rowflip), S - 1 - vi, vi)  # from screen y
+        col_idx = torch.where(c(colflip), S - 1 - ui, ui)  # from screen x
+        # reflect (flip source x) then maybe transpose, as index remaps:
+        # img'[r, c] = img[r, S-1-c] under reflection; img''[r, c] =
+        # img'[c, r] under use_t
+        refl = c(e.is_reflected[:, i] & ~use_bank)
+        ut_ = c(use_t)
+        src_r = torch.where(ut_, col_idx, row_idx)  # [N, res] (rows or cols)
+        src_c = torch.where(ut_, row_idx, col_idx)
+        # src_r/src_c index the pixel grid [p=row, q=col]: build per pixel
+        rr = torch.where(ut_[:, :, None], src_r[:, None, :], src_r[:, :, None])
+        cc = torch.where(ut_[:, :, None], src_c[:, :, None], src_c[:, None, :])
+        cc = torch.where(refl[:, :, None], S - 1 - cc, cc)
+        samp = rows[row_i[:, None, None], rr.long(), cc.long()].to(f32)  # [N,res,res,4]
+        inside = yvalid[:, :, None] & xvalid[:, None, :]
+        samp = torch.where(inside[..., None], samp, 0.0)
+
+        cover = inside.to(f32)
+        fbk = is_fallback[:, i][:, None, None]
+        a = torch.where(
+            fbk, cover,
+            samp[..., 3] * (1.0 / 255.0) * e.alpha[:, i][:, None, None] * cover,
+        )
+        rgb = torch.where(fbk[..., None], fallback_rgb[:, i][:, None, None, :],
+                          samp[..., :3])
+        a = torch.where(live_all[:, i][:, None, None], a, 0.0)
+
+        src = torch.cat([rgb, ones], dim=-1)
+        for zi, z in enumerate(z_levels):
+            az = (a * (e.render_z[:, i] == z).to(f32)[:, None, None])[..., None]
+            canv[zi] = (src * az + canv[zi].to(f32) * (1 - az)).to(bf16)
+    return canv
+
+
+def grid_tile_canvas(game, s, atlas):
+    """Aligned per-env tile canvas ``[N, NC*sA, NC*sA, 5]`` (RGBA + covered
+    flag, exact u8 values in f32), plus the (top_y, low_x) cell origin."""
+    sA = atlas.tile_px
+    dev = s.grid.device
+    # a 5th channel marks atlas-covered texels so the colored-cell pass
+    # skips those cells
+    rows = atlas.rows_on(dev)
+    covered = torch.arange(rows.shape[0], device=dev) < atlas.transparent_row
+    covered = (covered.to(torch.uint8) * 255)[:, None, None, None]
+    aug = torch.cat([rows, covered.expand(-1, sA, sA, 1)], dim=-1)
+
+    wmax, hmax = game.WORLD_DIM_MAX
+    if game.center_agent:
+        raise NotImplementedError("center_agent grid window not ported")
+    NC = max(wmax, hmax)
+    n = s.num
+    low_x = torch.zeros((n,), dtype=i32, device=dev)
+    low_y = torch.zeros((n,), dtype=i32, device=dev)
+    top_y = low_y + NC
+    ar = torch.arange(NC, device=dev, dtype=i32)[None, :]
+    cys = top_y[:, None] - 1 - ar  # canvas rows: descending world y
+    cxs = low_x[:, None] + ar
+    gt = _sample_grid(s.grid, cys, cxs, hmax, wmax, INVALID_OBJ)
+    inb = ((cys >= 0) & (cys < s.main_height[:, None]))[:, :, None] & (
+        (cxs >= 0) & (cxs < s.main_width[:, None])
+    )[:, None, :]
+    gt = torch.where(inb, gt, INVALID_OBJ)
+
+    img = game.image_for_type(s, gt)
+    theme = game.theme_for_grid_obj(s, gt)
+    img = torch.where(gt == INVALID_OBJ, -1, img)
+    row = atlas.row_for(img, game.mask_theme(img, theme)).long()  # [N, NC, NC]
+    canvas = aug[row]  # [N, NC, NC, sA, sA, 5]
+    canvas = canvas.permute(0, 1, 3, 2, 4, 5).reshape(n, NC * sA, NC * sA, 5)
+    return canvas, top_y, low_x
+
+
+def _paint_grid_tiles(game, s, obs, res, wxs, wys, atlas):
+    """Textured grid pass: aligned tile canvas + separable nearest
+    resample (procgen_tpu/render/renderer.py:570-597)."""
+    sA = atlas.tile_px
+    canvas, top_y, low_x = grid_tile_canvas(game, s, atlas)
+    GS = canvas.shape[1]
+
+    cyx = (top_y.to(f32)[:, None] - wys) * sA  # [N, res] canvas row per row
+    cxx = (wxs - low_x.to(f32)[:, None]) * sA
+    ri = torch.floor(cyx).to(i32).clamp(0, GS - 1).long()
+    ci = torch.floor(cxx).to(i32).clamp(0, GS - 1).long()
+    in_r = (cyx >= 0) & (cyx < GS)
+    in_c = (cxx >= 0) & (cxx < GS)
+    n = canvas.shape[0]
+    samp = canvas[torch.arange(n, device=canvas.device)[:, None, None],
+                  ri[:, :, None], ci[:, None, :]]  # [N, res, res, 5] u8
+    m = (in_r[:, :, None] & in_c[:, None, :])[..., None]
+    samp = torch.where(m, samp.to(f32), 0.0)
+
+    alpha = fdiv(samp[..., 3:4], 255.0)
+    rgb = samp[..., :3]
+    blended = torch.round(obs.to(f32) * (1 - alpha) + rgb * alpha).to(i32)
+    covered = samp[..., 4] > 127
+    return blended, covered
