@@ -1,30 +1,45 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-Phases, one line of output each (a phase that fails raises, and the
-process exits non-zero):
+Phases, one line of output or more each (a phase that fails raises, and
+the process exits non-zero):
 
 1. device   — CUDA present; torch, CUDA, nvcc versions; card name and
               power limit (nvidia-smi).
-2. build    — nvcc builds procgen_tpu_torch/csrc/*.cu; seconds, ptxas.
-3. kernel   — the frame kernel against its plain torch version, byte for
-              byte: on the prep of 4096 maze states after 50 random steps,
-              and on a made-up batch (fallback slots, alpha < 1, tall and
-              clipped rects, flips, transposed rows, tiling, dead slots).
-4. slice    — ``entry.make_env_fns(4096, "maze", device="cuda")``: init,
-              100 warm-up steps, 300 timed steps (the bench.py protocol);
-              one kernel launch per step; env-steps/s; a per-layer split
-              of the step; the kernel's time against the plain version's.
-5. check    — a 64-env ``ProcgenGym3Env`` for 50 steps on the card and on
-              the CPU, bit-equal; the maze_easy reference recording
-              replayed exactly on the card.
+2. build    — nvcc builds procgen_tpu_torch/csrc/*.cu, one process per
+              source; seconds, ptxas.
+3. maze     — the static-prefix kernel ``render_suffix`` against its plain
+              torch version, byte for byte, on the prep of 4096 maze states
+              after 50 random steps and on a made-up batch; the slice
+              ``entry.make_env_fns(4096, "maze", device="cuda")``: 100
+              warm-up and 300 timed steps, one ``render_suffix`` launch a
+              step, env-steps/s, a per-layer split, the kernel's time
+              against the plain version's and its bound; a 64-env
+              ``ProcgenGym3Env`` for 50 steps on the card and on the CPU,
+              bit-equal; the maze_easy recording replayed exactly on the
+              card.
+4. miner    — the whole-frame kernel ``render_frame`` against its plain
+              torch version, byte for byte, on the prep of 4096 miner-easy
+              states after 50 random steps, of 4096 miner-hard states and
+              on a made-up batch; the slice ``make_env_fns(4096, "miner",
+              device="cuda")`` the same way, one ``render_frame`` launch a
+              step; a 64-env miner ``ProcgenGym3Env`` for 50 steps on the
+              card and on the CPU, bit-equal, latents included; the
+              miner_easy recording replayed exactly on the card.
+5. profile  — 20 more steps of each slice under ``torch.profiler``:
+              device time a step and the device busy share.  Last of the
+              measured phases, since the host dispatch stays slower once
+              the profiler has run.
 6. result   — a JSON line of the kernels, the card line, and the last line
               ``{"ok": true, "device": {...}}``.
 
-It needs one card and imports nothing of JAX.
+Each path's launch counts are set to 0 just before its slice and read just
+after it; launches made to compare or time a kernel do not count.  It
+needs one card and imports nothing of JAX.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -37,6 +52,13 @@ sys.path.insert(0, ROOT)
 NUM_ENVS = 4096
 WARM_STEPS = 100
 TIMED_STEPS = 300
+PROFILE_STEPS = 20
+SPLIT_STEPS = 100
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def log(phase, msg):
@@ -66,6 +88,60 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved, flops):
+    """(bound_ms, bound_by): the larger of the bytes moved (each input read
+    once, each output written once) over the HBM rate, and the f32
+    operations over the f32 peak."""
+    t_bytes = moved / HBM_BYTES_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def slot_ops(ent_f, ent_i, atlas, nz, zs, rk, torch):
+    """f32 operations the sprite pass and its composites need on this
+    data: 4 a pixel for each live slot (its rectangle test); 24 a pixel
+    inside a live slot's rectangle (two divisions, the tiling and texel
+    index arithmetic, the alpha product, the RGBA blend); 9 a pixel for
+    each composited canvas ``zs`` whose alpha there is above 0 (elsewhere
+    the composite is the identity)."""
+    pix = torch.arange(64, dtype=torch.float32, device=ent_f.device) + 0.5
+    live = (ent_i[..., rk.EI_LIVE] > 0) & (ent_i[..., rk.EI_Z] >= 0)
+
+    def span(origin, extent):  # pixels of one axis inside the rectangle
+        u = (pix - ent_f[..., origin, None]) / ent_f[..., extent, None]
+        return ((u >= 0) & (u < 1)).sum(-1)
+
+    inside = span(rk.EF_X0, rk.EF_W2) * span(rk.EF_Y0, rk.EF_H2)
+    canv = rk._slot_canvases(ent_f, ent_i, atlas, nz)
+    lit = sum(int((canv[z, ..., 3] > 0).sum()) for z in zs if z >= 0)
+    return 4 * 64 * 64 * int(live.sum()) + 24 * int(inside[live].sum()) + 9 * lit
+
+
+def frame_ops(x, rk, torch):
+    """f32 operations ``render_frame`` needs on this data: the slots as in
+    ``slot_ops``; per env 16 for each pixel row and column (the world
+    coordinates, background and cell-window indices); 10 a pixel where the
+    tile texel's alpha is above 0 (the blend) and 6 a pixel of a valid
+    cell no tile covers (the inset test)."""
+    n = x.sf.shape[0]
+    _, _, inside, crow, ccol, row, tex = rk.grid_lookup(x)
+    nidx = torch.arange(n, device=x.sf.device)[:, None, None]
+    valid = x.cell5[:, 3][nidx, crow, ccol] > 0.5
+    cells = inside & (row >= x.grid_opaque) & valid
+    return (slot_ops(x.ent_f, x.ent_i, x.ent_atlas, x.nz, x.z_slots, rk, torch)
+            + n * 2 * 64 * 16 + 10 * int((tex[..., 3] > 0).sum())
+            + 6 * int(cells.sum()))
+
+
+def zero_counts(rk):
+    for k in rk.LAUNCHES:
+        rk.LAUNCHES[k] = 0
+
+
 def main():
     import numpy as np
     import torch
@@ -92,63 +168,52 @@ def main():
     log("build", f"nvcc {info['seconds']:.2f}s (load {time.perf_counter() - t0:.2f}s) "
         f"{' | '.join(info.get('ptxas', []))}")
 
-    from procgen_tpu_torch.core.constants import EASY_MODE, INT32_MAX
+    runs, rows = zip(maze_phase(dev, card, np, torch),
+                     miner_phase(dev, card, np, torch))
+
+    # -- 5. profile: after every timed phase ---------------------------------
+    for name, run in zip(("maze", "miner"), runs):
+        profile_slice(name, *run, np, torch)
+
+    # -- 6. result -----------------------------------------------------------
+    print(json.dumps({"kernels": rows}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def _game(name, mode):
+    from procgen_tpu_torch.core.constants import INT32_MAX
     from procgen_tpu_torch.core.options import GameOptions
-    from procgen_tpu_torch.entry import make_env_fns
     from procgen_tpu_torch.games.registry import make_game
+
+    game = make_game(name, GameOptions(distribution_mode=mode))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    return game
+
+
+def run_slice(name, dev, card, np, torch):
+    """The main path of one game: ``make_env_fns(4096, name)``, 100 warm-up
+    and 300 timed steps, launch counts zeroed just before and read just
+    after.  Returns (carry, launches, step, ms a timed step)."""
+    from procgen_tpu_torch.entry import make_env_fns
     from procgen_tpu_torch.render import render_kernel as rk
 
-    # the entry point's game, configured the same way, for the direct
-    # kernel calls and the per-layer split
-    maze = make_game("maze", GameOptions(distribution_mode=EASY_MODE))
-    maze.level_seed_low, maze.level_seed_high = 0, INT32_MAX
-
-    # -- 3. kernel vs plain version ---------------------------------------
-    init, step, seeds = make_env_fns(NUM_ENVS, "maze", device=dev)
-    carry = init(seeds)
-    rng = np.random.RandomState(1)
-    for _ in range(50):
-        acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
-        carry, obs, rew, done = step(carry, acts)
-    plan = rk.get_plan(maze)
-    atlas = plan.atlas(dev)
-    ent_f, ent_i = rk.prep(plan, carry.states)
-    base = carry.states.frame.contiguous()
-    nz = len(plan.z_levels)
-    got = rk.render_suffix(base, ent_f, ent_i, atlas, nz)
-    want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz)
-    torch.cuda.synchronize()
-    err_real = int((got.int() - want.int()).abs().max())
-    live = int(ent_i[..., rk.EI_LIVE].sum())
-    if err_real != 0:
-        raise AssertionError(f"kernel != plain on maze states (max err {err_real})")
-    sf, si = rk.synthetic_slots(NUM_ENVS, 8, atlas.shape[0], seed=0)
-    sbase = torch.as_tensor(
-        np.random.RandomState(2).randint(0, 256, (NUM_ENVS, 64, 64, 3)).astype(np.uint8),
-        device=dev,
-    )
-    sf, si = sf.to(dev), si.to(dev)
-    got_s = rk.render_suffix(sbase, sf, si, atlas, 2)
-    want_s = rk.render_suffix_reference(sbase, sf, si, atlas, 2)
-    torch.cuda.synchronize()
-    err_syn = int((got_s.int() - want_s.int()).abs().max())
-    if err_syn != 0:
-        raise AssertionError(f"kernel != plain on made-up slots (max err {err_syn})")
-    changed = float((got_s != sbase).any(dim=-1).float().mean())
-    log("kernel", f"byte-equal: {NUM_ENVS} maze states ({live} live slots) and "
-        f"{NUM_ENVS}x8 made-up slots ({changed:.3f} of pixels painted); "
-        f"max_abs_err {max(err_real, err_syn)}")
-    del carry, obs
-
-    # -- 4. the slice ------------------------------------------------------
-    carry = init(seeds)
-    torch.cuda.synchronize()
+    init, step, seeds = make_env_fns(NUM_ENVS, name, device=dev)
     total = WARM_STEPS + TIMED_STEPS
     actions = torch.as_tensor(
         np.random.RandomState(0).randint(0, 15, size=(total, NUM_ENVS)),
         dtype=torch.int32, device=dev,
     )
-    rk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    carry = init(seeds)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    zero_counts(rk)
     for t in range(WARM_STEPS):
         carry, obs, rew, done = step(carry, actions[t])
     torch.cuda.synchronize()
@@ -157,46 +222,64 @@ def main():
         carry, obs, rew, done = step(carry, actions[t])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = rk.LAUNCHES
-    if launches != total:
-        raise AssertionError(f"{launches} kernel launches in {total} steps")
+    launches = dict(rk.LAUNCHES)
     if obs.dtype != torch.uint8 or tuple(obs.shape) != (NUM_ENVS, 64, 64, 3) \
-            or not obs.is_cuda:
+            or obs.device.type != dev.type:
         raise AssertionError(f"bad obs {obs.dtype} {tuple(obs.shape)} {obs.device}")
     if not (torch.isfinite(rew).all() and rew.shape == (NUM_ENVS,)):
         raise AssertionError("bad rewards")
     rate = TIMED_STEPS * NUM_ENVS / dt
-    log("slice", f"{rate:.1f} env-steps/s ({dt / TIMED_STEPS * 1e3:.2f} ms/step, "
-        f"{NUM_ENVS} envs, {TIMED_STEPS} timed steps after {WARM_STEPS}) "
-        f"on {card}; launches {launches} in {total} steps")
-
-    split = _step_split(maze, carry, actions[:100], dev)
-    log("slice", "step split (synchronised, ms/step): " + ", ".join(
+    wall_ms = dt / TIMED_STEPS * 1e3
+    log(name, f"slice: {rate:.1f} env-steps/s ({wall_ms:.2f} ms/step, "
+        f"{NUM_ENVS} envs, {TIMED_STEPS} timed steps after {WARM_STEPS}; init "
+        f"{t_init:.2f}s) on {card}; launches {launches} in {total} steps")
+    split = step_split(carry, actions[:SPLIT_STEPS], name, torch)
+    log(name, "step split (synchronised, ms/step): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()))
+    return carry, launches, step, wall_ms
 
-    ent_f, ent_i = rk.prep(plan, carry.states)
-    base = carry.states.frame.contiguous()
 
-    def kern():
-        rk.render_suffix(base, ent_f, ent_i, atlas, nz)
+def profile_slice(name, carry, step, wall_ms, np, torch):
+    """20 more steps of a slice under ``torch.profiler``: device records
+    and device ms a step, the device busy share (device ms over the
+    slice's timed ms a step) and the five largest kernels.  Run after
+    every timed phase: the host dispatch stays slower once the profiler
+    has run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    def plain():
-        rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz)
+    actions = torch.as_tensor(
+        np.random.RandomState(4).randint(0, 15, size=(PROFILE_STEPS, NUM_ENVS)),
+        dtype=torch.int32, device=carry.valid.device,
+    )
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in actions:
+            carry, *_ = step(carry, a)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        raise AssertionError(f"{name}: the profiler saw no device activity")
+    by_name = collections.Counter()
+    for e in device:
+        label = e.name.replace("(anonymous namespace)::", "").split("(")[0][:100]
+        by_name[label] += e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+    device_ms = sum(by_name.values())
+    log(name, f"profile of steps {WARM_STEPS + TIMED_STEPS}-"
+        f"{WARM_STEPS + TIMED_STEPS + PROFILE_STEPS}: "
+        f"{len(device) / PROFILE_STEPS:.1f} device records and {device_ms:.3f} "
+        f"device ms a step, busy share {device_ms / wall_ms:.4f} of the timed "
+        f"step ({time.perf_counter() - t0:.1f} s with the profiler's "
+        f"processing); largest (ms/step): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in by_name.most_common(5)))
 
-    saved = rk.LAUNCHES
-    k1, p1, k2, p2 = cuda_ms(kern, 200), cuda_ms(plain, 20), cuda_ms(kern, 200), cuda_ms(plain, 20)
-    rk.LAUNCHES = saved
-    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    gbps = 2 * NUM_ENVS * 64 * 64 * 3 / (kernel_ms * 1e-3) / 1e9
-    log("slice", f"render_suffix at N={NUM_ENVS}: kernel {kernel_ms:.4f} ms "
-        f"({k1:.4f}, {k2:.4f}), plain torch {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); "
-        f"frame bytes {gbps:.0f} GB/s on {card}")
 
-    # -- 5. GPU vs CPU, and the reference recording -----------------------
+def gpu_matches_cpu(name, np, torch):
+    """A 64-env ProcgenGym3Env for 50 steps on the card and on the CPU:
+    obs, rewards, firsts and every info field (latents included) equal."""
     from procgen_tpu_torch import ProcgenGym3Env
-    from procgen_tpu_torch.conformance import replay
 
-    envs = {d: ProcgenGym3Env(num=64, env_name="maze", distribution_mode="easy",
+    envs = {d: ProcgenGym3Env(num=64, env_name=name, distribution_mode="easy",
                               rand_seed=0, device=d) for d in ("cuda", "cpu")}
     arng = np.random.RandomState(3)
     for t in range(50):
@@ -210,58 +293,227 @@ def main():
                 v.cpu().numpy() for _, v in sorted(inf.items())]
         for x, y in zip(outs["cuda"], outs["cpu"]):
             if x.dtype != y.dtype or not np.array_equal(x, y):
-                raise AssertionError(f"GPU and CPU runs differ at step {t}")
-    rec = json.load(open(os.path.join(ROOT, "tests", "data", "conformance",
-                                      "maze_easy.json")))
+                raise AssertionError(f"{name}: GPU and CPU runs differ at step {t}")
+    return sorted(inf)
+
+
+def replay_on_card(name):
+    from procgen_tpu_torch.conformance import replay
+
+    with open(os.path.join(ROOT, "tests", "data", "conformance", f"{name}.json")) as f:
+        rec = json.load(f)
     res = replay(rec, device="cuda")
     if res["first_divergence"] is not None:
-        raise AssertionError(f"maze_easy replay diverged: {res['first_divergence']}")
-    log("check", "64 envs x 50 steps: GPU and CPU bit-equal (obs, rewards, "
-        f"firsts, latents); maze_easy replay exact ({res['checked']} steps)")
+        raise AssertionError(f"{name} replay diverged: {res['first_divergence']}")
+    return res["checked"]
 
-    # -- 6. result -----------------------------------------------------------
-    print(json.dumps({"kernels": [{
+
+def maze_phase(dev, card, np, torch):
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    maze = _game("maze", 0)
+    plan = rk.get_plan(maze)
+    atlas = plan.atlas(dev)
+    nz = len(plan.z_levels)
+
+    # kernel vs plain version on real and made-up inputs
+    from procgen_tpu_torch.entry import make_env_fns
+
+    init, step, seeds = make_env_fns(NUM_ENVS, "maze", device=dev)
+    carry = init(seeds)
+    rng = np.random.RandomState(1)
+    for _ in range(50):
+        acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+        carry, obs, rew, done = step(carry, acts)
+    ent_f, ent_i = rk.prep(plan, carry.states)
+    base = carry.states.frame.contiguous()
+    got = rk.render_suffix(base, ent_f, ent_i, atlas, nz)
+    want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz)
+    torch.cuda.synchronize()
+    err_real = int((got.int() - want.int()).abs().max())
+    live = int(ent_i[..., rk.EI_LIVE].sum())
+    if err_real != 0:
+        raise AssertionError(f"render_suffix != plain on maze states (max err {err_real})")
+    sf, si = rk.synthetic_slots(NUM_ENVS, 8, atlas.shape[0], seed=0)
+    sbase = torch.as_tensor(
+        np.random.RandomState(2).randint(0, 256, (NUM_ENVS, 64, 64, 3)).astype(np.uint8),
+        device=dev,
+    )
+    sf, si = sf.to(dev), si.to(dev)
+    got_s = rk.render_suffix(sbase, sf, si, atlas, 2)
+    want_s = rk.render_suffix_reference(sbase, sf, si, atlas, 2)
+    torch.cuda.synchronize()
+    err_syn = int((got_s.int() - want_s.int()).abs().max())
+    if err_syn != 0:
+        raise AssertionError(f"render_suffix != plain on made-up slots (max err {err_syn})")
+    changed = float((got_s != sbase).any(dim=-1).float().mean())
+    log("maze", f"render_suffix byte-equal: {NUM_ENVS} maze states ({live} live "
+        f"slots) and {NUM_ENVS}x8 made-up slots ({changed:.3f} of pixels "
+        f"painted); max_abs_err {max(err_real, err_syn)}")
+    del carry, obs
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("maze", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_suffix"] != total or launches["render_frame"] != 0:
+        raise AssertionError(f"maze: launches {launches} in {total} steps")
+
+    # the kernel's time against the plain version's
+    ent_f, ent_i = rk.prep(plan, carry.states)
+    base = carry.states.frame.contiguous()
+    saved = dict(rk.LAUNCHES)
+    k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz), 200)
+    p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz), 20)
+    k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz), 200)
+    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz), 20)
+    rk.LAUNCHES.update(saved)
+    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    moved = nbytes(base, ent_f, ent_i, atlas) + nbytes(base)
+    ops = slot_ops(ent_f, ent_i, atlas, nz, range(nz), rk, torch)
+    b_ms, b_by = bound(moved, ops)
+    log("maze", f"render_suffix at N={NUM_ENVS}: kernel {kernel_ms:.4f} ms "
+        f"({k1:.4f}, {k2:.4f}), plain torch {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); "
+        f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} f32 ops) on {card}")
+
+    keys = gpu_matches_cpu("maze", np, torch)
+    checked = replay_on_card("maze_easy")
+    log("maze", f"64 envs x 50 steps: GPU and CPU bit-equal (obs, rewards, "
+        f"firsts, {', '.join(keys)}); maze_easy replay exact ({checked} steps)")
+    return (carry, step, wall_ms), {
         "name": "render_suffix",
         "route": "cuda",
         "source": "procgen_tpu_torch/csrc/render_suffix.cu",
         "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
-        "launches": launches,
+        "launches": launches["render_suffix"],
         "max_abs_err": max(err_real, err_syn),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
-    print(card_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
 
 
-def _step_split(game, carry, actions, dev):
+def frame_check(x, what, rk, torch):
+    """render_frame against render_frame_reference on ``x``; max abs err."""
+    got = rk.render_frame(x)
+    want = rk.render_frame_reference(x)
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max())
+    if err != 0:
+        raise AssertionError(f"render_frame != plain on {what} (max err {err})")
+    return err
+
+
+def miner_phase(dev, card, np, torch):
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.entry import make_env_fns
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    # kernel vs plain version: easy after 50 steps, hard, made-up
+    init, step, seeds = make_env_fns(NUM_ENVS, "miner", device=dev)
+    carry = init(seeds)
+    rng = np.random.RandomState(1)
+    for _ in range(50):
+        acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+        carry, obs, rew, done = step(carry, acts)
+    easy = _game("miner", 0)
+    plan = rk.get_plan(easy)
+    x_easy = rk.prep_frame(plan, carry.states)
+    err = frame_check(x_easy, "miner-easy states", rk, torch)
+    del carry, obs
+
+    hard = _game("miner", 1)
+    s = lifecycle.env_reset(hard, lifecycle.initial_state(hard, seeds))
+    for _ in range(5):
+        acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+        s, _ = lifecycle.env_step(hard, s, acts)
+    x_hard = rk.prep_frame(rk.get_plan(hard), s)
+    err = max(err, frame_check(x_hard, "miner-hard states", rk, torch))
+    del s
+
+    x_syn = rk.synthetic_frame_inputs(
+        NUM_ENVS, plan.NC, 8, plan.on("grid", dev), plan.on("bg", dev),
+        plan.atlas(dev), plan.grid_opaque, seed=0,
+    ).to(dev)
+    err = max(err, frame_check(x_syn, "made-up inputs", rk, torch))
+    cells = float(((x_syn.cell5[:, 3] > 0.5) & (x_syn.gtab >= x_syn.grid_opaque)).float().mean())
+    log("miner", f"render_frame byte-equal: {NUM_ENVS} miner-easy states after 50 "
+        f"steps, {NUM_ENVS} miner-hard states (NC {x_hard.gtab.shape[1]}, sA "
+        f"{x_hard.grid_atlas.shape[1]}), {NUM_ENVS} made-up envs ({cells:.3f} of "
+        f"cells valid and uncovered); max_abs_err {err}")
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("miner", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"miner: launches {launches} in {total} steps")
+
+    # the kernel's time against the plain version's, on the slice's states
+    x = rk.prep_frame(plan, carry.states)
+    saved = dict(rk.LAUNCHES)
+    k1 = cuda_ms(lambda: rk.render_frame(x), 200)
+    p1 = cuda_ms(lambda: rk.render_frame_reference(x), 20)
+    k2 = cuda_ms(lambda: rk.render_frame(x), 200)
+    p2 = cuda_ms(lambda: rk.render_frame_reference(x), 20)
+    kh = cuda_ms(lambda: rk.render_frame(x_hard), 200)
+    rk.LAUNCHES.update(saved)
+    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    frame_bytes = NUM_ENVS * 64 * 64 * 3
+
+    def frame_bound(x):
+        moved = frame_bytes + nbytes(x.sf, x.si, x.gtab, x.cell5, x.ent_f,
+                                     x.ent_i, x.grid_atlas, x.bg_atlas, x.ent_atlas)
+        ops = frame_ops(x, rk, torch)
+        return (*bound(moved, ops), f"{moved} bytes, {ops} f32 ops")
+
+    b_ms, b_by, b_work = frame_bound(x)
+    bh_ms, bh_by, bh_work = frame_bound(x_hard)
+    log("miner", f"render_frame at N={NUM_ENVS}: easy kernel {kernel_ms:.4f} ms "
+        f"({k1:.4f}, {k2:.4f}), plain torch {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), "
+        f"bound {b_ms:.4f} ms ({b_by}; {b_work}); hard kernel {kh:.4f} ms, bound "
+        f"{bh_ms:.4f} ms ({bh_by}; {bh_work}) on {card}")
+
+    keys = gpu_matches_cpu("miner", np, torch)
+    checked = replay_on_card("miner_easy")
+    log("miner", f"64 envs x 50 steps: GPU and CPU bit-equal (obs, rewards, "
+        f"firsts, {', '.join(keys)}); miner_easy replay exact ({checked} steps)")
+    return (carry, step, wall_ms), {
+        "name": "render_frame",
+        "route": "cuda",
+        "source": "procgen_tpu_torch/csrc/render_frame.cu",
+        "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
+        "launches": launches["render_frame"],
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def step_split(carry, actions, name, torch):
     """Per-layer milliseconds per step over ``len(actions)`` steps, each
     layer fenced by a synchronise: step logic (``env_step`` alone), pool
     (the rest of the pooled step: splice, in-step resets, replenish),
     frame prep, the kernel, the overlay pass."""
-    import torch
-
     from procgen_tpu_torch.core import lifecycle
     from procgen_tpu_torch.parallel import vec
     from procgen_tpu_torch.render import render_kernel as rk
     from procgen_tpu_torch.render.renderer import post
 
+    game = _game(name, 0)
     k = max(1, min(carry.valid.shape[0], 64))
     acc = {"logic": 0.0, "step": 0.0, "prep": 0.0, "kernel": 0.0, "post": 0.0}
     plan = rk.get_plan(game)
-    atlas = plan.atlas(dev)
-    nz = len(plan.z_levels)
-    saved = rk.LAUNCHES
+    dev = carry.valid.device
+    saved = dict(rk.LAUNCHES)
 
-    def lap(name, t0):
+    def lap(key, t0):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        acc[name] += t1 - t0
+        acc[key] += t1 - t0
         return t1
 
     torch.cuda.synchronize()
@@ -271,14 +523,19 @@ def _step_split(game, carry, actions, dev):
         t = lap("logic", t)
         carry = vec.step_pool(game, carry, a, k)
         t = lap("step", t)
-        ent_f, ent_i = rk.prep(plan, carry.states)
-        t = lap("prep", t)
-        out = rk.render_suffix(carry.states.frame.contiguous(), ent_f, ent_i,
-                               atlas, nz)
+        if plan.static:
+            ent_f, ent_i = rk.prep(plan, carry.states)
+            t = lap("prep", t)
+            out = rk.render_suffix(carry.states.frame.contiguous(), ent_f, ent_i,
+                                   plan.atlas(dev), len(plan.z_levels))
+        else:
+            x = rk.prep_frame(plan, carry.states)
+            t = lap("prep", t)
+            out = rk.render_frame(x)
         t = lap("kernel", t)
         post(game, carry.states, out.to(torch.int32), 64).to(torch.uint8)
         lap("post", t)
-    rk.LAUNCHES = saved
+    rk.LAUNCHES.update(saved)
     n = len(actions)
     ms = {k_: v * 1e3 / n for k_, v in acc.items()}
     return {

@@ -3,9 +3,9 @@
 The recordings in tests/data/conformance/*.json come from the C++ engine
 (the format tools/conformance.py of the JAX package reads): actions per
 step, and per step the rewards, firsts, level seeds, previous-level info
-and latents.  ``replay`` steps a ``ProcgenGym3Env`` of the port with the
-recorded actions and returns the first divergence, or None.  Every
-comparison is exact.
+and latents.  ``replay`` steps a ``ProcgenGym3Env`` of the port (on the
+card unless ``device="cpu"``) with the recorded actions and returns the
+first divergence, or None.  Every comparison is exact.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def _latents_diverge(lat: dict, want: dict, wmax: int, with_exit: bool):
     return None
 
 
-def replay(rec: dict, device="cpu") -> dict:
+def replay(rec: dict, device="cuda") -> dict:
     """Replay one recording; returns {"steps", "checked",
     "first_divergence"}."""
     actions = np.asarray(rec["actions"], np.int32)

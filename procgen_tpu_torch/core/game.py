@@ -4,9 +4,10 @@ The counterpart of ``procgen_tpu.core.game``.  A game is a plain Python
 class holding static configuration; all dynamic data lives in
 ``BasicState``, a dataclass of batch-first tensors with the JAX package's
 field names, dtypes and per-env shapes behind a leading ``[N]`` axis.  The
-port carries the subset of ``BasicAbstractGame`` that maze reaches:
-grid-step movement, the vectorised collision dispatch, erase, the reset
-path's RNG helpers and ``game_reset_base``.  Physics paths the other games
+port carries the subset of ``BasicAbstractGame`` that maze and miner
+reach: grid-step movement, the vectorised collision dispatch, erase, the
+grid reads and writes, the reset path's RNG helpers and
+``game_reset_base``.  Physics paths the other games
 need (sub-stepped movers, the entity scan, push chains) are queued in
 ROADMAP.md.
 """
@@ -273,6 +274,12 @@ class BasicAbstractGame:
         r, g, b = self.color_for_type(img, theme)
         return valid, r, g, b
 
+    def grid_cell_inset(self, s, gtype):
+        """Centered sub-rect size of a colored grid cell (cell fraction):
+        the frame kernel paints a pixel iff |u-0.5| < inset/2 and
+        |v-0.5| < inset/2.  2.0 covers the whole cell."""
+        return torch.full(gtype.shape, 2.0, dtype=f32, device=gtype.device)
+
     def color_for_type(self, type_, theme):
         from ..render.assets import monochrome_color
 
@@ -325,6 +332,14 @@ class BasicAbstractGame:
         flat = flat.clone()
         flat.scatter_(1, idx[:, None], new[:, None])
         return s.replace(grid=flat.reshape(s.grid.shape))
+
+    def set_obj(self, s: BasicState, x, y, v) -> BasicState:
+        """grid[n, y, x] = v for ``[N]`` coordinates; a write outside
+        ``WORLD_DIM_MAX`` is dropped, as a JAX scatter drops it (callers
+        pass in-range cells)."""
+        wmax, hmax = self.WORLD_DIM_MAX
+        inb = (x >= 0) & (x < wmax) & (y >= 0) & (y < hmax)
+        return self.set_obj_where(s, x, y, v, inb)
 
     def get_obj_grid22(self, s: BasicState, fxs, fys):
         """get_obj_from_floats at the 2x2 outer grid of float coords
@@ -651,6 +666,11 @@ class BasicAbstractGame:
     # ------------------------------------------------------------------
     # misc queries used by games
     # ------------------------------------------------------------------
+
+    def get_agent_index(self, s):
+        """int(agent.y) * main_width + int(agent.x) (cpp:176-178), [N]."""
+        e = s.ents
+        return e.y[:, 0].to(i32) * s.main_width + e.x[:, 0].to(i32)
 
     def cells_with_type_mask(self, s, type_):
         """[N, Hmax, Wmax] mask of in-bounds cells with the given type."""

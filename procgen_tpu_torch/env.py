@@ -1,7 +1,9 @@
 """User-facing vectorized env API (reference: procgen/env.py); the
 counterpart of ``procgen_tpu.env`` for one game, with a ``device=``
-keyword.  ``ProcgenGym3Env`` mirrors the gym3 surface (observe / act /
-get_info / keys_to_act); ``ProcgenEnv`` is the baselines-VecEnv-style
+keyword that defaults to ``"cuda"`` (without a card construction raises;
+pass ``device="cpu"`` to run on the CPU).  ``ProcgenGym3Env`` mirrors the
+gym3 surface (observe / act / get_info / keys_to_act / callmethod
+``set_latent_state``); ``ProcgenEnv`` is the baselines-VecEnv-style
 wrapper.  Not ported yet: ``render_mode="rgb_array"``, get_state /
 set_state, joint games (ROADMAP.md Queue 1).
 """
@@ -61,7 +63,7 @@ class BaseProcgenEnv:
         resource_root=None,
         num_threads=4,  # accepted for API parity
         render_mode=None,
-        device="cpu",
+        device="cuda",
     ):
         self.combos = self.get_combos()
         self.num = num
@@ -114,6 +116,15 @@ class BaseProcgenEnv:
         _, _, _, info = self._vec.observe()
         info = {k: v.cpu().numpy() for k, v in info.items()}
         return [{k: v[i] for k, v in info.items()} for i in range(self.num)]
+
+    def callmethod(self, method: str, *args):
+        """env.py callmethod: ``set_latent_state`` (miner) is ported;
+        get_state / set_state are not yet."""
+        if method == "set_latent_state":
+            return self._vec.set_latent_state(*args)
+        if method in ("get_state", "set_state"):
+            raise NotImplementedError(f"{method} is not ported yet")
+        raise AttributeError(f"unknown method {method}")
 
     def get_combos(self):
         return get_combos()

@@ -1,8 +1,8 @@
 """Game registry (reference: procgen/src/game-registry.{h,cpp}).
 
 Games self-register via ``@register(name)``; ``make_game(name, options)``
-replaces ``globalGameRegistry->at(name)()``.  The port carries maze only so
-far; the other games are queued in ROADMAP.md.
+replaces ``globalGameRegistry->at(name)()``.  The port carries maze and
+miner so far; the other games are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import importlib
 _REGISTRY: dict[str, type] = {}
 
 # modules that register games on import (grown as games are ported)
-_GAME_MODULES = ["maze"]
+_GAME_MODULES = ["maze", "miner"]
 
 
 def register(name: str):

@@ -153,7 +153,7 @@ class TorchVecGame:
         rand_seed: int,
         num_levels: int = 0,
         start_level: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         self.num = num
         self.game = game
@@ -228,6 +228,24 @@ class TorchVecGame:
             self._cached = self._observe_impl(self.carry.states)
             self._cached_for = self.carry.states
         return self._cached
+
+    def set_latent_state(self, latents: list) -> None:
+        """Apply per-env latent-state dicts (games with game_set_state:
+        miner, miner.cpp:423-449); the counterpart of
+        ``JaxVecGame.set_latent_state``.  The pool is left as it is."""
+        if not hasattr(self.game, "set_latent_state"):
+            raise AttributeError(
+                f"{self.game.name} does not support set_latent_state"
+            )
+        if len(latents) != self.num:
+            raise ValueError(f"need {self.num} latent dicts, got {len(latents)}")
+        batched = {
+            k: torch.as_tensor(np.stack([np.asarray(l[k]) for l in latents]),
+                               device=self.device)
+            for k in latents[0]
+        }
+        states = self.game.set_latent_state(self.carry.states, batched)
+        self.carry = dataclasses.replace(self.carry, states=states)
 
     def rollout(self, actions):
         """Step ``k`` times (``actions`` [k, num]); returns (obs, rew,

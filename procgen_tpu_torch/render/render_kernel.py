@@ -1,32 +1,41 @@
-"""The per-step frame render: prep in torch, the sprite suffix in CUDA.
+"""The per-step frame render: prep in torch, the frame kernels in CUDA.
 
-The counterpart of ``procgen_tpu.render.pallas_kernel`` on the
-static-prefix path, which maze takes: the background, grid tiles and
-colored cells are composed once per level into ``state.frame``
-(lifecycle.env_reset), and each step composites only the entity sprites
-over that frame.
+The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
 
-* ``prep`` evaluates every game hook at ``[N, cap]`` scale (rects, atlas
-  rows, flips, tiling, fallback colors) — ``_prep_pool`` of the JAX
-  package, operation for operation.
-* ``render_suffix`` launches ``csrc/render_suffix.cu`` on CUDA tensors;
-  ``render_suffix_reference`` is the same function as vectorised torch and
-  runs for CPU tensors.  Both reproduce the Pallas kernel's K1a (start
-  from the cached frame), K1b (per-slot sampling into premultiplied bf16
-  canvases, one per z level) and K1c (composite z=0 then z=1, round, u8).
-* ``post`` adds the velocity squares and game overlays.
+* the static-prefix path, which maze takes: the background, grid tiles and
+  colored cells are composed once per level into ``state.frame``
+  (lifecycle.env_reset), and each step composites only the entity sprites
+  over that frame.  ``render_suffix`` launches ``csrc/render_suffix.cu``;
+  it reproduces the Pallas kernel's K1a (start from the cached frame), K1b
+  (per-slot sampling into premultiplied bf16 canvases, one per z level)
+  and K1c (composite z=0 then z=1, round, u8).
+* the whole-frame path of a game that is not static, with the standard
+  background crop and the entity pool alone, which miner takes.
+  ``render_frame`` launches ``csrc/render_frame.cu``; it adds the Pallas
+  kernel's K1d (background crop), the z=-1 composite, K1e (grid tiles) and
+  K1f (colored cells).
+
+``prep`` evaluates every game hook at ``[N, cap]`` scale (rects, atlas
+rows, flips, tiling, fallback colors), ``_prep_pool`` of the JAX package
+operation for operation; ``prep_frame`` adds the per-env scalars, the grid
+window's row table and the colored-cell planes (the non-static branch of
+``_prep_one``).  Each kernel has a plain torch twin,
+``render_suffix_reference`` and ``render_frame_reference``, which serves
+CPU tensors; a CUDA tensor always goes to the kernel.  ``post`` adds the
+velocity squares and game overlays.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..core.constants import SPACE
 from .atlas import ROT_OVERHANG, get_atlases
-from .renderer import camera, post
+from .renderer import bg_width, camera, fdiv, grid_rows, grid_window, post
 
 f32 = torch.float32
 i32 = torch.int32
@@ -41,38 +50,76 @@ EF_N = 8
 (EI_ROW, EI_LIVE, EI_FB, EI_PFLIP, EI_QFLIP, EI_Z, EI_NTH, EI_NTV,
  EI_TILEH, EI_TILEV) = range(10)
 EI_N = 10
+# per-env scalar columns, f32 (procgen_tpu/render/pallas_kernel.py:69-71)
+(SF_UNIT, SF_VIS, SF_XOFF, SF_YOFF, SF_MRX, SF_MRY, SF_MRW, SF_MRH,
+ SF_BGRX, SF_BGRW, SF_TILEH, SF_TOPY, SF_LOWX) = range(13)
+SF_N = 13
+# per-env scalar columns, int32 (:73-74)
+SI_BGROW, SI_ENT_COUNT, SI_DEC_COUNT = range(3)
+SI_N = 3
 
-# Launches of the CUDA kernel since import (or since a caller reset it);
-# render_suffix adds one per launch and nothing else touches it.
-LAUNCHES = 0
+# Launches of each CUDA kernel since import (or since a caller reset
+# them); each wrapper adds one to its own count per launch and nothing
+# else touches them.
+LAUNCHES = {"render_suffix": 0, "render_frame": 0}
 
 
 class RenderPlan:
-    """Static per-game plan: the entity atlas in the kernel's layout."""
+    """Static per-game plan: the atlases in the kernels' layouts."""
 
     def __init__(self, game, res: int):
         assert res == RES, "the frame kernel is 64x64 only"
-        _, _, ent_atlas = get_atlases(game, res)
+        grid_atlas, bg_atlas, ent_atlas = get_atlases(game, res)
         if ent_atlas is None:
             raise NotImplementedError("monochrome sprites not ported (ROADMAP)")
         self.game = game
         self.res = res
+        self.static = bool(game.static_prefix)
         self.ent_atlas = ent_atlas
         self.z_levels = tuple(game.ENT_Z_LEVELS)
+        # the canvas index of z = -1, 0, 1 (-1: the game has no such level)
+        self.z_slots = tuple(
+            self.z_levels.index(z) if z in self.z_levels else -1 for z in (-1, 0, 1)
+        )
         self.S = ent_atlas.tile_px
         rows = ent_atlas.rows  # [n1e, S, S, 4] u8, transparent row kept
         self.n1e = rows.shape[0]
         # rows, then their transposes: the quarter-turn variants
-        self.atlas_np = np.ascontiguousarray(
+        self.arrays = {"ent": np.ascontiguousarray(
             np.concatenate([rows, np.transpose(rows, (0, 2, 1, 3))], axis=0)
-        )  # [2*n1e, S, S, 4] u8
+        )}  # [2*n1e, S, S, 4] u8
+        if not self.static:
+            wmax, hmax = game.WORLD_DIM_MAX
+            self.NC = max(wmax, hmax)
+            self.grid_atlas = grid_atlas
+            self.sA = grid_atlas.tile_px
+            # rows below this one are tiles that cover their cell
+            self.grid_opaque = grid_atlas.transparent_row
+            self.arrays["grid"] = grid_atlas.rows  # [n_rows, sA, sA, 4] u8
+            self.use_bg = bg_atlas is not None and game.options.use_backgrounds
+            if bg_atlas is not None:
+                self.arrays["bg"] = bg_atlas.pixels  # [nb, BH, BW, 3] u8
+                self.bg_aspects = np.asarray(bg_atlas.aspects, np.float32)
+            else:
+                self.arrays["bg"] = np.zeros((1, 1, 1, 3), np.uint8)
+                self.bg_aspects = np.ones((1,), np.float32)
         self._dev: dict = {}
 
-    def atlas(self, device) -> torch.Tensor:
-        key = str(device)
+    def on(self, name: str, device) -> torch.Tensor:
+        """Atlas ``name`` ("ent", and for the whole-frame path "grid" and
+        "bg") as a tensor on ``device``, cached."""
+        key = (name, str(device))
         if key not in self._dev:
-            self._dev[key] = torch.as_tensor(self.atlas_np, device=device)
+            self._dev[key] = torch.as_tensor(self.arrays[name], device=device)
         return self._dev[key]
+
+    def atlas(self, device) -> torch.Tensor:
+        """The entity atlas and its transposes, uint8 [2*n1e, S, S, 4]."""
+        return self.on("ent", device)
+
+    @property
+    def atlas_np(self) -> np.ndarray:
+        return self.arrays["ent"]
 
 
 _PLANS: dict = {}
@@ -89,19 +136,29 @@ def get_plan(game, res: int = RES) -> RenderPlan:
 def supports(game, res: int = RES) -> bool:
     """Games whose per-step frame this module reproduces: the JAX gate
     (procgen_tpu/render/pallas_kernel.py:204-215) restricted to the ported
-    static-prefix path with the entity pool alone at z in (0, 1)."""
+    paths, the entity pool alone, textured, and either the static prefix
+    with z in (0, 1) or the whole frame with the standard background crop
+    and z in (-1, 0, 1).  Tiled, scrolled and procedural backgrounds,
+    decor pools, the centred camera and monochrome sprites are not
+    ported."""
     from ..core.game import BasicAbstractGame
 
-    if res != RES:
+    if res != RES or game.DECOR_CAP or game.options.use_monochrome_assets:
         return False
     if type(game).paint_background is not BasicAbstractGame.paint_background:
         return False
     if type(game).grid_cell_colors is not BasicAbstractGame.grid_cell_colors:
         return False
+    z = tuple(game.ENT_Z_LEVELS)
+    if game.static_prefix:
+        return z in ((0,), (1,), (0, 1))
     return (
-        bool(game.static_prefix)
-        and not game.DECOR_CAP
-        and tuple(game.ENT_Z_LEVELS) in ((0,), (1,), (0, 1))
+        not game.center_agent
+        and game.PALLAS_BG == "standard"
+        and game.bg_tile_ratio >= 0
+        and not game.uses_procgen_background
+        and len(set(z)) == len(z) <= 4
+        and set(z) <= {-1, 0, 1}
     )
 
 
@@ -194,27 +251,116 @@ def prep(plan: RenderPlan, s):
     return ent_f, ent_i
 
 
+@dataclasses.dataclass
+class FrameInputs:
+    """Everything ``render_frame`` and ``render_frame_reference`` read.
+
+    Per env: ``sf`` f32 [N, SF_N] and ``si`` int32 [N, SI_N] scalars;
+    ``gtab`` int32 [N, NC, NC], the grid-atlas row of every window cell;
+    ``cell5`` f32 [N, 5, NC, NC], the colored-cell planes r, g, b, valid,
+    inset; ``ent_f`` / ``ent_i``, the sprite slots.  Shared: the atlases,
+    uint8 ``grid_atlas`` [n_rows, sA, sA, 4], ``bg_atlas`` [nb, BH, BW, 3]
+    and ``ent_atlas`` [2*n1e, S, S, 4]; ``z_slots``, the canvas index of
+    z = -1, 0, 1 (-1 for none) among ``nz`` canvases; ``grid_opaque``, the
+    first grid row that covers nothing; ``use_bg``."""
+
+    sf: torch.Tensor
+    si: torch.Tensor
+    gtab: torch.Tensor
+    cell5: torch.Tensor
+    ent_f: torch.Tensor
+    ent_i: torch.Tensor
+    grid_atlas: torch.Tensor
+    bg_atlas: torch.Tensor
+    ent_atlas: torch.Tensor
+    z_slots: tuple
+    nz: int
+    grid_opaque: int
+    use_bg: bool
+
+    def to(self, device) -> "FrameInputs":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if torch.is_tensor(getattr(self, f.name))
+        })
+
+
+def prep_frame(plan: RenderPlan, s) -> FrameInputs:
+    """The whole-frame kernel's inputs: the non-static branch of the JAX
+    package's ``_prep_one`` (procgen_tpu/render/pallas_kernel.py:250-377)
+    at ``[N, ...]`` scale, except that the grid tiles come as a per-cell
+    atlas row table instead of the resampled tile canvas."""
+    game = plan.game
+    n = s.num
+    dev = s.grid.device
+    w = s.main_width.to(f32)
+    h = s.main_height.to(f32)
+    unit, vis, x_off, y_off = camera(game, s, plan.res)
+
+    sf = torch.zeros((n, SF_N), dtype=f32, device=dev)
+    si = torch.zeros((n, SI_N), dtype=i32, device=dev)
+    sf[:, SF_UNIT], sf[:, SF_VIS] = unit, vis
+    sf[:, SF_XOFF], sf[:, SF_YOFF] = x_off, y_off
+    if plan.use_bg:
+        # standard crop with the random x offset (:271-302)
+        mr_x = -x_off
+        mr_y = (vis - h) * unit + y_off
+        mr_w = w * unit
+        mr_h = h * unit
+        bi = s.background_index.clamp(0, plan.bg_aspects.shape[0] - 1)
+        bg_ar = torch.as_tensor(plan.bg_aspects, device=dev)[bi.long()]
+        world_ar = w / h
+        extra_w = bg_ar - world_ar
+        offx = s.bg_pct_x * extra_w
+        sf[:, SF_MRX], sf[:, SF_MRY] = mr_x, mr_y
+        sf[:, SF_MRW], sf[:, SF_MRH] = mr_w, mr_h
+        sf[:, SF_BGRX] = mr_x + mr_w * (-offx)
+        sf[:, SF_BGRW] = bg_width(mr_w, bg_ar, w, h)
+        si[:, SI_BGROW] = bi
+    si[:, SI_ENT_COUNT] = s.ents.count
+
+    gt, top_y, low_x = grid_window(game, s)
+    sf[:, SF_TOPY], sf[:, SF_LOWX] = top_y.to(f32), low_x.to(f32)
+    gtab = grid_rows(game, s, gt, plan.grid_atlas)
+
+    # colored-cell planes, evaluated at the cell centre (:356-369)
+    half = torch.full(gt.shape, 0.5, dtype=f32, device=dev)
+    cv, cr, cg, cb = game.grid_cell_colors(s, gt, half, half)
+    inset = game.grid_cell_inset(s, gt)
+    cell5 = torch.stack(
+        [torch.as_tensor(v, device=dev).to(f32).expand(gt.shape)
+         for v in (cr, cg, cb, cv, inset)],
+        dim=1,
+    )
+
+    ent_f, ent_i = prep(plan, s)
+    return FrameInputs(
+        sf=sf, si=si, gtab=gtab.contiguous(), cell5=cell5.contiguous(),
+        ent_f=ent_f, ent_i=ent_i,
+        grid_atlas=plan.on("grid", dev), bg_atlas=plan.on("bg", dev),
+        ent_atlas=plan.atlas(dev), z_slots=plan.z_slots,
+        nz=len(plan.z_levels), grid_opaque=plan.grid_opaque,
+        use_bg=plan.use_bg,
+    )
+
+
 # ---------------------------------------------------------------------------
-# the suffix: plain torch version and the CUDA kernel
+# the kernels: plain torch versions and the CUDA wrappers
 # ---------------------------------------------------------------------------
 
 
-def render_suffix_reference(base, ent_f, ent_i, atlas, nz: int):
-    """Plain torch sprite suffix: the kernel's function on [N, cap, ...].
-
-    ``base`` uint8 [N, 64, 64, 3] (the cached prefix frame), ``ent_f`` /
-    ``ent_i`` from ``prep``, ``atlas`` uint8 [2*n1e, S, S, 4].  Slots
-    paint in order into premultiplied RGBA canvases, one per z index,
-    each rounded to bf16 after every slot; the canvases then composite
-    over the frame in z order.  Returns uint8 [N, 64, 64, 3]."""
-    n, res = base.shape[0], base.shape[1]
-    cap = ent_f.shape[1]
+def _slot_canvases(ent_f, ent_i, atlas, nz: int, res: int = RES):
+    """K1b in plain torch: the slots paint in order into premultiplied RGBA
+    canvases, one per z index, each rounded to bf16 after every slot.
+    Returns f32 [nz, N, res, res, 4]."""
+    n, cap = ent_f.shape[0], ent_f.shape[1]
     S = atlas.shape[1]
-    dev = base.device
+    dev = ent_f.device
     sx = (torch.arange(res, dtype=f32, device=dev) + 0.5)[None, :]
     sy = sx
     canv = torch.zeros((nz, n, res, res, 4), dtype=f32, device=dev)
-    nidx = torch.arange(n, device=dev)[:, None, None]
+    nidx = torch.arange(n, device=dev)
     for i in range(cap):
         fi = ent_f[:, i]
         ii = ent_i[:, i]
@@ -248,44 +394,66 @@ def render_suffix_reference(base, ent_f, ent_i, atlas, nz: int):
         rgb = torch.where(fb[..., None], fi[:, EF_R:EF_B + 1][:, None, None, :],
                           tex[..., :3])
         zc = ii[:, EI_Z].long().clamp(0, nz - 1)
-        old = canv[zc, nidx[:, 0, 0]]  # [N, res, res, 4]
+        old = canv[zc, nidx]  # [N, res, res, 4]
         a1 = a[..., None]
         new_rgb = (rgb * a1 + old[..., :3] * (1 - a1))
         new_a = a1 + old[..., 3:] * (1 - a1)
-        new = torch.cat([new_rgb, new_a], dim=-1).to(torch.bfloat16).to(f32)
-        canv[zc, nidx[:, 0, 0]] = new
+        canv[zc, nidx] = torch.cat([new_rgb, new_a], dim=-1).to(torch.bfloat16).to(f32)
+    return canv
 
+
+def _composite(obs, canv, z: int):
+    """K1c: canvas ``z`` (-1: none) over an f32 frame, rounded."""
+    if z < 0:
+        return obs
+    c4 = canv[z]
+    return torch.round(c4[..., :3] + obs * (1 - c4[..., 3:]))
+
+
+def render_suffix_reference(base, ent_f, ent_i, atlas, nz: int):
+    """Plain torch sprite suffix: the kernel's function on [N, cap, ...].
+
+    ``base`` uint8 [N, 64, 64, 3] (the cached prefix frame), ``ent_f`` /
+    ``ent_i`` from ``prep``, ``atlas`` uint8 [2*n1e, S, S, 4].  The slot
+    canvases composite over the frame in z order.  Returns uint8
+    [N, 64, 64, 3]."""
+    canv = _slot_canvases(ent_f, ent_i, atlas, nz, base.shape[1])
     obs = base.to(f32)
     for z in range(nz):
-        c4 = canv[z]
-        obs = torch.round(c4[..., :3] + obs * (1 - c4[..., 3:]))
+        obs = _composite(obs, canv, z)
     return obs.to(i32).to(u8)
+
+
+def _check(name, tensors):
+    """Raise unless every (label, tensor, dtype, shape) matches, is
+    contiguous and lies on the first tensor's device, which is a CUDA
+    device."""
+    dev = tensors[0][1].device
+    for label, t, dt, shape in tensors:
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name}: {label} must be {dt} {tuple(shape)} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors")
+    return dev
 
 
 def render_suffix(base, ent_f, ent_i, atlas, nz: int):
     """Launch ``csrc/render_suffix.cu`` on CUDA tensors (same contract as
     ``render_suffix_reference``); raises on anything it does not take."""
-    global LAUNCHES
     from .. import kernels
 
-    dev = base.device
-    if dev.type != "cuda":
-        raise ValueError("render_suffix takes CUDA tensors")
-    n = base.shape[0]
-    for name, t, dt, shape in (
+    n, cap = base.shape[0], ent_f.shape[1]
+    dev = _check("render_suffix", [
         ("base", base, u8, (n, RES, RES, 3)),
-        ("ent_f", ent_f, f32, (n, ent_f.shape[1], EF_N)),
-        ("ent_i", ent_i, i32, (n, ent_f.shape[1], EI_N)),
+        ("ent_f", ent_f, f32, (n, cap, EF_N)),
+        ("ent_i", ent_i, i32, (n, cap, EI_N)),
         ("atlas", atlas, u8, (atlas.shape[0], atlas.shape[1], atlas.shape[1], 4)),
-    ):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"render_suffix: {name} must be {dt} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"render_suffix: {name} must be contiguous")
-    cap = ent_f.shape[1]
+    ])
     # up to 4 canvases in registers; the slots' 72 bytes each in the
     # default 48 KiB of shared memory
     if not 1 <= nz <= 4 or cap * 72 > 48 * 1024:
@@ -293,15 +461,148 @@ def render_suffix(base, ent_f, ent_i, atlas, nz: int):
     out = torch.empty((n, RES, RES, 3), dtype=u8, device=dev)
     if n == 0:
         return out
-    lib = kernels.load()
-    err = lib.render_suffix(
+    err = kernels.load().render_suffix(
         base.data_ptr(), ent_f.data_ptr(), ent_i.data_ptr(), atlas.data_ptr(),
         out.data_ptr(), n, cap, nz, atlas.shape[1], atlas.shape[0],
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"render_suffix launch failed: cudaError {err}")
-    LAUNCHES += 1
+    LAUNCHES["render_suffix"] += 1
+    return out
+
+
+def grid_lookup(x: FrameInputs):
+    """K1e's per-pixel indices, the Pallas kernel's derivation
+    (pallas_kernel.py:970-1011).  Returns ``wxs`` [N, 64] and ``wys``
+    [N, 64], the world coordinates of the pixel columns and rows;
+    ``inside`` [N, 64, 64], the pixel lies in the cell window; ``crow``
+    [N, 64, 1] and ``ccol`` [N, 1, 64], its cell; ``row`` [N, 64, 64], the
+    cell's grid-atlas row; ``tex`` f32 [N, 64, 64, 4], its tile texel (0
+    outside the window)."""
+    sf = x.sf
+    n = sf.shape[0]
+    dev = sf.device
+    NC = x.gtab.shape[1]
+    sA = x.grid_atlas.shape[1]
+    GS = NC * sA
+    pix = (torch.arange(RES, dtype=f32, device=dev) + 0.5)[None, :]  # [1, 64]
+    unit, vis = sf[:, SF_UNIT:SF_UNIT + 1], sf[:, SF_VIS:SF_VIS + 1]
+    wys = vis - (pix - sf[:, SF_YOFF:SF_YOFF + 1]) / unit  # per pixel row
+    wxs = (pix + sf[:, SF_XOFF:SF_XOFF + 1]) / unit  # per pixel column
+
+    cyx = (sf[:, SF_TOPY:SF_TOPY + 1] - wys) * sA  # window row per pixel row
+    cxx = (wxs - sf[:, SF_LOWX:SF_LOWX + 1]) * sA
+    ri = torch.floor(cyx).to(i32).clamp(0, GS - 1)
+    ci = torch.floor(cxx).to(i32).clamp(0, GS - 1)
+    inside = (((cyx >= 0) & (cyx < GS))[:, :, None]
+              & ((cxx >= 0) & (cxx < GS))[:, None, :])
+    crow = torch.div(ri, sA, rounding_mode="floor").long()[:, :, None]
+    ccol = torch.div(ci, sA, rounding_mode="floor").long()[:, None, :]
+    nidx = torch.arange(n, device=dev)[:, None, None]
+    row = x.gtab[nidx, crow, ccol].long().clamp(0, x.grid_atlas.shape[0] - 1)
+    tex = x.grid_atlas[row, torch.remainder(ri, sA).long()[:, :, None],
+                       torch.remainder(ci, sA).long()[:, None, :]]
+    tex = torch.where(inside[..., None], tex.to(f32), 0.0)
+    return wxs, wys, inside, crow, ccol, row, tex
+
+
+def render_frame_reference(x: FrameInputs):
+    """Plain torch whole frame: the function of ``csrc/render_frame.cu``
+    (background crop, z=-1, grid tiles, colored cells, z=0, z=1), with the
+    Pallas kernel's index derivations.  Returns uint8 [N, 64, 64, 3]."""
+    sf = x.sf
+    n = sf.shape[0]
+    dev = sf.device
+    pix = (torch.arange(RES, dtype=f32, device=dev) + 0.5)[None, :]  # [1, 64]
+
+    def col(k):
+        return sf[:, k:k + 1]  # [N, 1]
+
+    nidx = torch.arange(n, device=dev)[:, None, None]
+
+    # K1d: background crop (pallas_kernel.py:656-666)
+    obs = torch.zeros((n, RES, RES, 3), dtype=f32, device=dev)
+    if x.use_bg:
+        BH, BW = x.bg_atlas.shape[1], x.bg_atlas.shape[2]
+        mr_y, mr_h = col(SF_MRY), col(SF_MRH)
+        bgr_x, bgr_w = col(SF_BGRX), col(SF_BGRW)
+        row_idx = ((pix - mr_y) / mr_h * BH).to(i32).clamp(0, BH - 1)
+        col_idx = ((pix - bgr_x) / bgr_w * BW).to(i32).clamp(0, BW - 1)
+        in_y = (pix >= mr_y) & (pix < mr_y + mr_h)
+        in_x = (pix >= bgr_x) & (pix < bgr_x + bgr_w)
+        bi = x.si[:, SI_BGROW].long().clamp(0, x.bg_atlas.shape[0] - 1)
+        samp = x.bg_atlas[bi[:, None, None], row_idx.long()[:, :, None],
+                          col_idx.long()[:, None, :]]
+        m = (in_y[:, :, None] & in_x[:, None, :])[..., None]
+        obs = torch.where(m, samp.to(f32), 0.0)
+
+    canv = _slot_canvases(x.ent_f, x.ent_i, x.ent_atlas, x.nz)
+    zm1, z0, z1 = x.z_slots
+    obs = _composite(obs, canv, zm1)
+
+    # K1e: grid tiles (:970-1011)
+    wxs, wys, inside, crow, ccol, row, tex = grid_lookup(x)
+    alpha = fdiv(tex[..., 3:4], 255.0)  # a true division, as in the kernel
+    obs = torch.round(obs * (1 - alpha) + tex[..., :3] * alpha)
+    covered = inside & (row < x.grid_opaque)
+
+    # K1f: colored cells (:1016-1038)
+    cells = x.cell5.permute(0, 2, 3, 1)[nidx, crow, ccol]  # [N, 64, 64, 5]
+    cells = torch.where(inside[..., None], cells, 0.0)
+    half = cells[..., 4] / 2
+    u_frac = (wxs - torch.floor(wxs))[:, None, :]
+    v_frac = (wys - torch.floor(wys))[:, :, None]
+    central = (torch.abs(u_frac - 0.5) < half) & (torch.abs(v_frac - 0.5) < half)
+    gvalid = (cells[..., 3] > 0.5) & central & ~covered
+    obs = torch.where(gvalid[..., None], cells[..., :3], obs)
+
+    obs = _composite(obs, canv, z0)
+    obs = _composite(obs, canv, z1)
+    return obs.to(i32).to(u8)
+
+
+def render_frame(x: FrameInputs):
+    """Launch ``csrc/render_frame.cu`` on CUDA tensors (same contract as
+    ``render_frame_reference``); raises on anything it does not take."""
+    from .. import kernels
+
+    n, cap = x.sf.shape[0], x.ent_f.shape[1]
+    NC = x.gtab.shape[1]
+    ga, bg, ea = x.grid_atlas, x.bg_atlas, x.ent_atlas
+    dev = _check("render_frame", [
+        ("sf", x.sf, f32, (n, SF_N)),
+        ("si", x.si, i32, (n, SI_N)),
+        ("gtab", x.gtab, i32, (n, NC, NC)),
+        ("cell5", x.cell5, f32, (n, 5, NC, NC)),
+        ("ent_f", x.ent_f, f32, (n, cap, EF_N)),
+        ("ent_i", x.ent_i, i32, (n, cap, EI_N)),
+        ("grid_atlas", ga, u8, (ga.shape[0], ga.shape[1], ga.shape[1], 4)),
+        ("bg_atlas", bg, u8, (bg.shape[0], bg.shape[1], bg.shape[2], 3)),
+        ("ent_atlas", ea, u8, (ea.shape[0], ea.shape[1], ea.shape[1], 4)),
+    ])
+    smem = 4 * (SF_N + SI_N + 6 * NC * NC + cap * (EF_N + EI_N))
+    if (not 1 <= x.nz <= 4 or smem > 48 * 1024 or len(x.z_slots) != 3
+            or not all(-1 <= z < x.nz for z in x.z_slots)):
+        raise ValueError(
+            f"render_frame: nz={x.nz}, z_slots={x.z_slots}, NC={NC} or "
+            f"cap={cap} out of range"
+        )
+    out = torch.empty((n, RES, RES, 3), dtype=u8, device=dev)
+    if n == 0:
+        return out
+    err = kernels.load().render_frame(
+        x.sf.data_ptr(), x.si.data_ptr(), x.gtab.data_ptr(), x.cell5.data_ptr(),
+        x.ent_f.data_ptr(), x.ent_i.data_ptr(), ga.data_ptr(), bg.data_ptr(),
+        ea.data_ptr(), out.data_ptr(),
+        n, cap, x.nz, *x.z_slots, NC, ga.shape[1], ga.shape[0], x.grid_opaque,
+        int(x.use_bg), bg.shape[0], bg.shape[1], bg.shape[2], ea.shape[1],
+        ea.shape[0],
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"render_frame launch failed: cudaError {err}")
+    LAUNCHES["render_frame"] += 1
     return out
 
 
@@ -337,20 +638,68 @@ def synthetic_slots(n: int, cap: int, n_rows: int, seed: int = 0):
     return torch.as_tensor(ent_f), torch.as_tensor(ent_i)
 
 
+def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
+                           ent_atlas, grid_opaque: int, seed: int = 0):
+    """Made-up ``FrameInputs`` (CPU tensors, the given atlases) covering
+    what miner's textured states do not reach: valid colored cells with an
+    inset below 1, cells covered by a tile and uncovered, background rects
+    that are offset or clipped, a window shifted off the frame, and slots
+    at z = -1, 0 and 1 (three canvases) over the grid, besides the slot
+    modes of ``synthetic_slots``.  Built with numpy from ``seed``."""
+    rng = np.random.RandomState(seed)
+    sf = np.zeros((n, SF_N), np.float32)
+    vis = rng.choice([NC, NC + 0.5, NC * 1.3], n).astype(np.float32)
+    sf[:, SF_VIS] = vis
+    sf[:, SF_UNIT] = np.float32(RES) / vis
+    sf[:, SF_XOFF] = rng.uniform(-8, 8, n)
+    sf[:, SF_YOFF] = rng.uniform(-8, 8, n)
+    sf[:, SF_MRX] = rng.uniform(-10, 10, n)
+    sf[:, SF_MRY] = rng.uniform(-10, 10, n)
+    sf[:, SF_MRW] = rng.uniform(30, 90, n)
+    sf[:, SF_MRH] = rng.uniform(30, 90, n)
+    sf[:, SF_BGRX] = rng.uniform(-60, 20, n)
+    sf[:, SF_BGRW] = rng.uniform(40, 160, n)
+    sf[:, SF_TOPY] = NC + rng.choice([0, 0, 1, -1], n)
+    sf[:, SF_LOWX] = rng.choice([0, 0, 1, -1], n)
+    si = np.zeros((n, SI_N), np.int32)
+    si[:, SI_BGROW] = rng.randint(0, bg_atlas.shape[0] + 1, n)
+    si[:, SI_ENT_COUNT] = cap
+    n_rows = grid_atlas.shape[0]
+    gtab = np.where(rng.rand(n, NC, NC) < 0.4, grid_opaque,
+                    rng.randint(0, n_rows, (n, NC, NC))).astype(np.int32)
+    cell5 = np.zeros((n, 5, NC, NC), np.float32)
+    cell5[:, :3] = rng.randint(0, 256, (n, 3, NC, NC))
+    cell5[:, 3] = rng.rand(n, NC, NC) < 0.7
+    cell5[:, 4] = rng.choice([2.0, 1.0, 0.6, 0.3, 0.0], (n, NC, NC))
+    ent_f, ent_i = synthetic_slots(n, cap, ent_atlas.shape[0], seed=seed)
+    ent_i[..., EI_Z] = torch.as_tensor(rng.choice([-1, 0, 1, 2], (n, cap)))
+    return FrameInputs(
+        sf=torch.as_tensor(sf), si=torch.as_tensor(si),
+        gtab=torch.as_tensor(gtab), cell5=torch.as_tensor(cell5),
+        ent_f=ent_f, ent_i=ent_i, grid_atlas=grid_atlas, bg_atlas=bg_atlas,
+        ent_atlas=ent_atlas, z_slots=(0, 1, 2), nz=3,
+        grid_opaque=grid_opaque, use_bg=True,
+    )
+
+
 def render_obs_batch(game, states, res: int = RES):
-    """Batched uint8 [N, 64, 64, 3] frames on the static-prefix path: the
-    CUDA kernel for CUDA states, its plain torch version for CPU states."""
+    """Batched uint8 [N, 64, 64, 3] frames: the CUDA kernel of the game's
+    path for CUDA states, its plain torch version for CPU states."""
     if not supports(game, res):
         raise NotImplementedError(
-            f"{game.name}: only the static-prefix frame path is ported"
+            f"{game.name}: this frame path is not ported (ROADMAP Queue 2)"
         )
     plan = get_plan(game, res)
-    ent_f, ent_i = prep(plan, states)
-    base = states.frame
-    atlas = plan.atlas(base.device)
-    nz = len(plan.z_levels)
-    if base.is_cuda:
-        out = render_suffix(base.contiguous(), ent_f, ent_i, atlas, nz)
+    if plan.static:
+        ent_f, ent_i = prep(plan, states)
+        base = states.frame
+        atlas = plan.atlas(base.device)
+        nz = len(plan.z_levels)
+        if base.is_cuda:
+            out = render_suffix(base.contiguous(), ent_f, ent_i, atlas, nz)
+        else:
+            out = render_suffix_reference(base, ent_f, ent_i, atlas, nz)
     else:
-        out = render_suffix_reference(base, ent_f, ent_i, atlas, nz)
+        x = prep_frame(plan, states)
+        out = render_frame(x) if x.sf.is_cuda else render_frame_reference(x)
     return post(game, states, out.to(i32), res).to(u8)

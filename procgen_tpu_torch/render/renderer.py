@@ -9,8 +9,9 @@ same values here.  Every bf16 round trip and every half-to-even round of
 the JAX renderer is kept.
 
 This is the path of the per-level static prefix (``prefix_only``), which
-the JAX package also computes outside its Pallas kernel, and the plain
-oracle of the per-step suffix (``base``).
+the JAX package also computes outside its Pallas kernel, the plain oracle
+of the per-step suffix (``base``), and, with neither, the plain oracle of
+the whole frame of a game that is not static (miner).
 """
 
 from __future__ import annotations
@@ -221,7 +222,7 @@ def _paint_background(game, s, obs, sx, sy, res, unit, vis, pix, bi, bg_ar):
     extra_w = bg_ar - world_ar
     offx = s.bg_pct_x * extra_w
     bgr_x = mr_x + mr_w * (-offx)
-    bgr_w = mr_w * bg_ar / world_ar
+    bgr_w = bg_width(mr_w, bg_ar, W, H)
     c = lambda t: t[:, None]  # noqa: E731  [N] -> [N, 1]
     row_idx = ((sy - c(mr_y)) / c(mr_h) * BH).to(i32).clamp(0, BH - 1)
     col_idx = ((sx - c(bgr_x)) / c(bgr_w) * BW).to(i32).clamp(0, BW - 1)
@@ -231,6 +232,13 @@ def _paint_background(game, s, obs, sx, sy, res, unit, vis, pix, bi, bg_ar):
                col_idx.long()[:, None, :]]  # [N, res, res, 3]
     m = (in_y[:, :, None] & in_x[:, None, :])[..., None]
     return torch.where(m, samp.to(i32), 0)
+
+
+def bg_width(mr_w, bg_ar, w, h):
+    """The background rect's width, ``mr_w * bg_ar / (w / h)`` as the JAX
+    package computes it: XLA's algebraic simplifier rewrites
+    ``a / (b / c)`` to ``a * c / b``, which can differ in the last bit."""
+    return mr_w * bg_ar * h / w
 
 
 def _sprite_canvases(game, s, pool, mask, atlas, res, unit, vis, x_off,
@@ -354,6 +362,38 @@ def _sprite_canvases(game, s, pool, mask, atlas, res, unit, vis, x_off,
     return canv
 
 
+def grid_window(game, s):
+    """Grid types of the aligned ``NC x NC`` cell window, int32
+    ``[N, NC, NC]`` (window rows in descending world y, INVALID_OBJ
+    outside the world), plus its (top_y, low_x) cell origin."""
+    wmax, hmax = game.WORLD_DIM_MAX
+    if game.center_agent:
+        raise NotImplementedError("center_agent grid window not ported")
+    NC = max(wmax, hmax)
+    n = s.num
+    dev = s.grid.device
+    low_x = torch.zeros((n,), dtype=i32, device=dev)
+    low_y = torch.zeros((n,), dtype=i32, device=dev)
+    top_y = low_y + NC
+    ar = torch.arange(NC, device=dev, dtype=i32)[None, :]
+    cys = top_y[:, None] - 1 - ar  # window rows: descending world y
+    cxs = low_x[:, None] + ar
+    gt = _sample_grid(s.grid, cys, cxs, hmax, wmax, INVALID_OBJ)
+    inb = ((cys >= 0) & (cys < s.main_height[:, None]))[:, :, None] & (
+        (cxs >= 0) & (cxs < s.main_width[:, None])
+    )[:, None, :]
+    return torch.where(inb, gt, INVALID_OBJ), top_y, low_x
+
+
+def grid_rows(game, s, gt, atlas):
+    """The grid-atlas row of every window cell (``gt`` from
+    ``grid_window``), int32; the transparent row where nothing is drawn."""
+    img = game.image_for_type(s, gt)
+    theme = game.theme_for_grid_obj(s, gt)
+    img = torch.where(gt == INVALID_OBJ, -1, img)
+    return atlas.row_for(img, game.mask_theme(img, theme))
+
+
 def grid_tile_canvas(game, s, atlas):
     """Aligned per-env tile canvas ``[N, NC*sA, NC*sA, 5]`` (RGBA + covered
     flag, exact u8 values in f32), plus the (top_y, low_x) cell origin."""
@@ -366,27 +406,9 @@ def grid_tile_canvas(game, s, atlas):
     covered = (covered.to(torch.uint8) * 255)[:, None, None, None]
     aug = torch.cat([rows, covered.expand(-1, sA, sA, 1)], dim=-1)
 
-    wmax, hmax = game.WORLD_DIM_MAX
-    if game.center_agent:
-        raise NotImplementedError("center_agent grid window not ported")
-    NC = max(wmax, hmax)
-    n = s.num
-    low_x = torch.zeros((n,), dtype=i32, device=dev)
-    low_y = torch.zeros((n,), dtype=i32, device=dev)
-    top_y = low_y + NC
-    ar = torch.arange(NC, device=dev, dtype=i32)[None, :]
-    cys = top_y[:, None] - 1 - ar  # canvas rows: descending world y
-    cxs = low_x[:, None] + ar
-    gt = _sample_grid(s.grid, cys, cxs, hmax, wmax, INVALID_OBJ)
-    inb = ((cys >= 0) & (cys < s.main_height[:, None]))[:, :, None] & (
-        (cxs >= 0) & (cxs < s.main_width[:, None])
-    )[:, None, :]
-    gt = torch.where(inb, gt, INVALID_OBJ)
-
-    img = game.image_for_type(s, gt)
-    theme = game.theme_for_grid_obj(s, gt)
-    img = torch.where(gt == INVALID_OBJ, -1, img)
-    row = atlas.row_for(img, game.mask_theme(img, theme)).long()  # [N, NC, NC]
+    gt, top_y, low_x = grid_window(game, s)
+    n, NC = gt.shape[0], gt.shape[1]
+    row = grid_rows(game, s, gt, atlas).long()  # [N, NC, NC]
     canvas = aug[row]  # [N, NC, NC, sA, sA, 5]
     canvas = canvas.permute(0, 1, 3, 2, 4, 5).reshape(n, NC * sA, NC * sA, 5)
     return canvas, top_y, low_x

@@ -9,7 +9,8 @@
   ``ProcgenGym3Env`` (rewards, firsts, level seeds, prev-level info,
   latents).
 * ``TorchVecGame.rollout`` against a loop of ``act``.
-* ``import procgen_tpu_torch`` with jax blocked.
+* ``import procgen_tpu_torch`` (and chip_smoke.py) with jax blocked.
+* The entry points default to the card and raise without one.
 
 Tolerance: zero.
 """
@@ -32,6 +33,7 @@ from procgen_tpu_torch import ProcgenGym3Env
 from procgen_tpu_torch.bridge import state_to_numpy
 from procgen_tpu_torch.conformance import replay
 from procgen_tpu_torch.entry import make_env_fns
+from procgen_tpu_torch.parallel.vec import TorchVecGame
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 4
@@ -107,7 +109,7 @@ def test_steps_match(trajectories):
 def test_conformance_replay(name):
     with open(os.path.join(HERE, "data", "conformance", f"{name}.json")) as f:
         rec = json.load(f)
-    res = replay(rec)
+    res = replay(rec, device="cpu")
     assert res["first_divergence"] is None, res["first_divergence"]
     assert res["checked"] == res["steps"] == len(rec["actions"])
 
@@ -132,10 +134,13 @@ def test_rollout_matches_act_loop():
 
 
 def test_import_without_jax():
+    """The port, its miner module and chip_smoke.py import with jax, flax
+    and the JAX package blocked."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None; "
         "sys.modules['procgen_tpu'] = None\n"
         "import pkgutil, importlib, procgen_tpu_torch\n"
+        "import procgen_tpu_torch.games.miner, chip_smoke\n"
         "for m in pkgutil.walk_packages(procgen_tpu_torch.__path__, "
         "'procgen_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -146,3 +151,26 @@ def test_import_without_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=os.path.dirname(HERE), timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+@pytest.mark.parametrize("entry", ["ProcgenGym3Env", "TorchVecGame", "replay",
+                                   "make_env_fns"])
+def test_default_device_is_the_card(entry):
+    """With no ``device``, every entry point asks for the card; on a
+    machine without one it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.games.maze import Maze
+
+    with open(os.path.join(HERE, "data", "conformance", "maze_easy.json")) as f:
+        rec = json.load(f)
+    call = {
+        "ProcgenGym3Env": lambda: ProcgenGym3Env(num=2, env_name="maze"),
+        "TorchVecGame": lambda: TorchVecGame(
+            2, Maze(GameOptions(distribution_mode=0)), rand_seed=0),
+        "replay": lambda: replay(rec),
+        "make_env_fns": lambda: make_env_fns(2, "maze"),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
