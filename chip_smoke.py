@@ -38,11 +38,22 @@ the process exits non-zero):
               64-env one for 50 steps on the card and on the CPU,
               bit-equal; the coinrun_easy recording replayed exactly on
               the card.
-6. profile  — 10 more steps of each slice under ``torch.profiler``:
+6. fruitbot — ``render_frame`` with the tiled background against its plain
+              version, byte for byte, on the prep of 4096 fruitbot-easy
+              states after 50 random steps under the whole-world camera
+              and the agent-centred one, of 4096 fruitbot-hard states and
+              on a made-up tiled batch; the slice ``make_env_fns(4096,
+              "fruitbot", device="cuda")``, one ``render_frame`` launch a
+              step; the kernel's time on easy under both cameras and on
+              hard; 100 timed steps of a 4096-env centred
+              ``ProcgenGym3Env``; a 64-env one for 50 steps on the card
+              and on the CPU, bit-equal; the fruitbot_easy recording
+              replayed exactly on the card.
+7. profile  — 10 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-7. result   — a JSON line of the kernels (``render_frame`` once for each
+8. result   — a JSON line of the kernels (``render_frame`` once for each
               path that launches it), the card line, and the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -119,11 +130,13 @@ def bound(moved, flops):
 
 def slot_ops(ent_f, ent_i, atlas, nz, zs, rk, torch):
     """f32 operations the sprite pass and its composites need on this
-    data: 4 a pixel for each live slot (its rectangle test); 24 a pixel
-    inside a live slot's rectangle (two divisions, the tiling and texel
-    index arithmetic, the alpha product, the RGBA blend); 9 a pixel for
-    each composited canvas ``zs`` whose alpha there is above 0 (elsewhere
-    the composite is the identity)."""
+    data: 8 for each live slot (its rectangle's ends and the reciprocals of
+    its extents); 24 a pixel inside a live slot's rectangle (two
+    divisions, the tiling and texel index arithmetic, the alpha product,
+    the RGBA blend); 9 a pixel for each composited canvas ``zs`` whose
+    alpha there is above 0 (elsewhere the composite is the identity).  The
+    kernel's own test of every slot's rectangle at every pixel is its
+    design's cost, not the function's, and is not counted."""
     pix = torch.arange(64, dtype=torch.float32, device=ent_f.device) + 0.5
     live = (ent_i[..., rk.EI_LIVE] > 0) & (ent_i[..., rk.EI_Z] >= 0)
 
@@ -134,7 +147,7 @@ def slot_ops(ent_f, ent_i, atlas, nz, zs, rk, torch):
     inside = span(rk.EF_X0, rk.EF_W2) * span(rk.EF_Y0, rk.EF_H2)
     canv = rk._slot_canvases(ent_f, ent_i, atlas, nz)
     lit = sum(int((canv[z, ..., 3] > 0).sum()) for z in zs if z >= 0)
-    return 4 * 64 * 64 * int(live.sum()) + 24 * int(inside[live].sum()) + 9 * lit
+    return 8 * int(live.sum()) + 24 * int(inside[live].sum()) + 9 * lit
 
 
 def frame_ops(x, rk, torch):
@@ -161,7 +174,8 @@ def frame_bytes(x, rk, torch):
     its pixels fall in, the valid plane of those cells no tile covers, the
     other four planes of the valid ones among these, and the slots below
     each pool's live count; of the shared atlases, the rows this data
-    samples (whole background images)."""
+    samples (of the background images, the rows some pixel shows, tiled or
+    cropped)."""
     n, NC = x.sf.shape[0], x.gtab.shape[1]
     dev = x.sf.device
     _, _, inside, crow, ccol, row, _ = rk.grid_lookup(x)
@@ -185,9 +199,11 @@ def frame_bytes(x, rk, torch):
     ga, ea, bg = x.grid_atlas, x.ent_atlas, x.bg_atlas
     atlas = (ent_rows.unique().numel() * ea[0].numel()
              + row[inside].unique().numel() * ga[0].numel())
-    if x.use_bg:
-        atlas += (x.si[:, rk.SI_BGROW].clamp(0, bg.shape[0] - 1).unique().numel()
-                  * bg[0].numel())
+    if x.bg_mode != rk.BG_NONE:
+        bi, row_idx, _, in_y, in_x = rk.background_lookup(x)
+        shown = in_y & in_x.any(dim=1, keepdim=True)
+        image_rows = (bi[:, None] * bg.shape[1] + row_idx)[shown].unique().numel()
+        atlas += image_rows * bg[0, 0].numel()
     return (n * 64 * 64 * 3 + nbytes(x.sf, x.si) + 4 * words
             + (rk.EF_N + rk.EI_N) * 4 * slots + atlas)
 
@@ -246,13 +262,14 @@ def main():
 
     runs, rows = zip(maze_phase(dev, card, np, torch),
                      miner_phase(dev, card, np, torch),
-                     coinrun_phase(dev, card, np, torch))
+                     coinrun_phase(dev, card, np, torch),
+                     fruitbot_phase(dev, card, np, torch))
 
-    # -- 6. profile: after every timed phase ---------------------------------
-    for name, run in zip(("maze", "miner", "coinrun"), runs):
+    # -- 7. profile: after every timed phase ---------------------------------
+    for name, run in zip(("maze", "miner", "coinrun", "fruitbot"), runs):
         profile_slice(name, *run, np, torch)
 
-    # -- 7. result -----------------------------------------------------------
+    # -- 8. result -----------------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -296,11 +313,14 @@ def run_slice(name, dev, card, np, torch, warm=WARM_STEPS, timed=TIMED_STEPS):
         carry, obs, rew, done = step(carry, actions[t])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    dones = []
     for t in range(warm, total):
         carry, obs, rew, done = step(carry, actions[t])
+        dones.append(done)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(rk.LAUNCHES)
+    ends = float(torch.stack(dones).float().mean())
     if obs.dtype != torch.uint8 or tuple(obs.shape) != (NUM_ENVS, 64, 64, 3) \
             or obs.device.type != dev.type:
         raise AssertionError(f"bad obs {obs.dtype} {tuple(obs.shape)} {obs.device}")
@@ -310,10 +330,12 @@ def run_slice(name, dev, card, np, torch, warm=WARM_STEPS, timed=TIMED_STEPS):
     wall_ms = dt / timed * 1e3
     log(name, f"slice: {rate:.1f} env-steps/s ({wall_ms:.2f} ms/step, "
         f"{NUM_ENVS} envs, {timed} timed steps after {warm}; init "
-        f"{t_init:.2f}s) on {card}; launches {launches} in {total} steps")
-    split = step_split(carry, actions[:SPLIT_STEPS], name, torch)
+        f"{t_init:.2f}s) on {card}; launches {launches} in {total} steps; "
+        f"{ends * 100:.3f}% of the envs end an episode a timed step")
+    split, ops = step_split(carry, actions[:SPLIT_STEPS], name, torch)
     log(name, "step split (synchronised, ms/step): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in split.items()))
+        f"{k} {v:.3f}" for k, v in split.items()) + "; torch operations "
+        "dispatched (a count): " + ", ".join(f"{k} {v}" for k, v in ops.items()))
     return carry, launches, step, wall_ms
 
 
@@ -567,7 +589,6 @@ def frame_row(path, launches, err, kernel_ms, plain_ms, b_ms, b_by):
 
 
 def coinrun_phase(dev, card, np, torch):
-    from procgen_tpu_torch import ProcgenGym3Env
     from procgen_tpu_torch.core import lifecycle
     from procgen_tpu_torch.core.constants import INT32_MAX
     from procgen_tpu_torch.core.options import GameOptions
@@ -644,7 +665,25 @@ def coinrun_phase(dev, card, np, torch):
     del x, xc
 
     # the gym3 surface at full width: act + observe, the centred camera
-    env = ProcgenGym3Env(num=NUM_ENVS, env_name="coinrun", distribution_mode="easy",
+    gym_centred("coinrun", card, np, torch)
+
+    keys = gpu_matches_cpu("coinrun", np, torch)
+    checked = replay_on_card("coinrun_easy")
+    log("coinrun", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, "
+        f"rewards, firsts, {', '.join(keys)}); coinrun_easy replay exact "
+        f"({checked} steps)")
+    return (carry, step, wall_ms), frame_row("coinrun", launches, err, kernel_ms,
+                                             plain_ms, b_ms, b_by)
+
+
+def gym_centred(name, card, np, torch):
+    """The gym3 surface at full width, act + observe, the centred camera
+    (``ProcgenGym3Env``'s default): 100 timed steps after 10; returns the
+    render_frame launches in the timed steps."""
+    from procgen_tpu_torch import ProcgenGym3Env
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    env = ProcgenGym3Env(num=NUM_ENVS, env_name=name, distribution_mode="easy",
                          rand_seed=0, device="cuda")
     arng = np.random.RandomState(5)
     acts = arng.randint(0, 15, size=(110, NUM_ENVS)).astype(np.int32)
@@ -660,26 +699,125 @@ def coinrun_phase(dev, card, np, torch):
     dt = time.perf_counter() - t0
     n_gym = rk.LAUNCHES["render_frame"] - before
     if obs_["rgb"].shape != (NUM_ENVS, 64, 64, 3) or n_gym != 100:
-        raise AssertionError(f"gym3 coinrun: obs {obs_['rgb'].shape}, {n_gym} launches")
-    log("coinrun", f"ProcgenGym3Env centred: {100 * NUM_ENVS / dt:.1f} env-steps/s "
+        raise AssertionError(f"gym3 {name}: obs {obs_['rgb'].shape}, {n_gym} launches")
+    log(name, f"ProcgenGym3Env centred: {100 * NUM_ENVS / dt:.1f} env-steps/s "
         f"({dt * 10:.2f} ms per act+observe, {NUM_ENVS} envs, 100 timed steps after "
         f"10, obs copied to the host) on {card}; {n_gym} render_frame launches")
-    del env
+    return n_gym
 
-    keys = gpu_matches_cpu("coinrun", np, torch)
-    checked = replay_on_card("coinrun_easy")
-    log("coinrun", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, "
-        f"rewards, firsts, {', '.join(keys)}); coinrun_easy replay exact "
+
+def fruitbot_phase(dev, card, np, torch):
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core.constants import INT32_MAX
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.entry import make_env_fns
+    from procgen_tpu_torch.games.fruitbot import Fruitbot
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    def game_of(mode, centred):
+        game = Fruitbot(GameOptions(distribution_mode=mode, center_agent=centred))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        return game
+
+    # kernel vs plain version: easy after 50 steps under both cameras,
+    # hard, made-up tiled rects
+    init, step, seeds = make_env_fns(NUM_ENVS, "fruitbot", device=dev)
+    carry = init(seeds)
+    rng = np.random.RandomState(1)
+    for _ in range(50):
+        acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+        carry, obs, rew, done = step(carry, acts)
+    world = rk.get_plan(game_of(0, False))
+    cplan = rk.get_plan(game_of(0, True))
+    x_world = rk.prep_frame(world, carry.states)
+    x_centred = rk.prep_frame(cplan, carry.states)
+    err = frame_check(x_world, "fruitbot-easy states, whole-world camera", rk, torch)
+    err = max(err, frame_check(x_centred, "fruitbot-easy states, centred", rk, torch))
+    live = int(carry.states.ents.count.sum())
+    tile_h = float(x_world.sf[0, rk.SF_TILEH])
+    del carry, obs, x_world, x_centred
+
+    hard = game_of(1, False)
+    s = lifecycle.env_reset(hard, lifecycle.initial_state(hard, seeds))
+    for _ in range(20):
+        acts = torch.as_tensor(rng.choice([1, 4, 7, 9], size=NUM_ENVS), device=dev)
+        s, _ = lifecycle.env_step(hard, s, acts)
+    x_hard = rk.prep_frame(rk.get_plan(hard), s)
+    err = max(err, frame_check(x_hard, "fruitbot-hard states", rk, torch))
+    live_hard = int(s.ents.count.sum())
+    del s
+
+    x_syn = rk.synthetic_frame_inputs(
+        NUM_ENVS, cplan.NC, 24, cplan.on("grid", dev), cplan.on("bg", dev),
+        cplan.atlas(dev), cplan.grid_opaque, seed=5, bg_mode=rk.BG_TILED,
+    ).to(dev)
+    err = max(err, frame_check(x_syn, "made-up tiled inputs", rk, torch))
+    log("fruitbot", f"render_frame byte-equal: {NUM_ENVS} fruitbot-easy states after "
+        f"50 steps ({live} live slots) under the whole-world camera (NC {world.NC}, "
+        f"tile height {tile_h:.6f} px) "
+        f"and the centred one (NC {cplan.NC}), {NUM_ENVS} fruitbot-hard states after "
+        f"20 steps ({live_hard} live slots), {NUM_ENVS} made-up tiled envs; "
+        f"max_abs_err {err}")
+    del x_syn
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("fruitbot", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"fruitbot: launches {launches} in {total} steps")
+
+    # the kernel's time against the plain version's: the slice's states
+    # under both cameras, and the hard states
+    x = rk.prep_frame(world, carry.states)
+    kernel_ms, plain_ms, readings = time_frame(x, rk)
+    b_ms, b_by, b_work = frame_bound(x, rk, torch)
+    xc = rk.prep_frame(cplan, carry.states)
+    kc_ms, pc_ms, creadings = time_frame(xc, rk)
+    bc_ms, bc_by, bc_work = frame_bound(xc, rk, torch)
+    kh_ms, ph_ms, hreadings = time_frame(x_hard, rk)
+    bh_ms, bh_by, bh_work = frame_bound(x_hard, rk, torch)
+    log("fruitbot", f"render_frame at N={NUM_ENVS} ({int(carry.states.ents.count.sum())} "
+        f"live slots): whole-world camera kernel {kernel_ms:.4f} ms, plain torch "
+        f"{plain_ms:.4f} ms (kernel, plain, kernel, plain: {readings}), bound "
+        f"{b_ms:.4f} ms ({b_by}; {b_work}); centred kernel {kc_ms:.4f} ms, plain "
+        f"{pc_ms:.4f} ms ({creadings}), bound {bc_ms:.4f} ms ({bc_by}; {bc_work}); "
+        f"hard kernel {kh_ms:.4f} ms, plain {ph_ms:.4f} ms ({hreadings}), bound "
+        f"{bh_ms:.4f} ms ({bh_by}; {bh_work}) on {card}")
+    del x, xc, x_hard
+
+    gym_centred("fruitbot", card, np, torch)
+    keys = gpu_matches_cpu("fruitbot", np, torch)
+    checked = replay_on_card("fruitbot_easy")
+    log("fruitbot", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, "
+        f"rewards, firsts, {', '.join(keys)}); fruitbot_easy replay exact "
         f"({checked} steps)")
-    return (carry, step, wall_ms), frame_row("coinrun", launches, err, kernel_ms,
+    return (carry, step, wall_ms), frame_row("fruitbot", launches, err, kernel_ms,
                                              plain_ms, b_ms, b_by)
+
+
+def torch_ops(fn):
+    """The torch operations ``fn()`` dispatches: a count, not a time."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.n
 
 
 def step_split(carry, actions, name, torch):
     """Per-layer milliseconds per step over ``len(actions)`` steps, each
     layer fenced by a synchronise: step logic (``env_step`` alone), pool
     (the rest of the pooled step: splice, in-step resets, replenish),
-    frame prep, the kernel, the overlay pass."""
+    frame prep, the kernel, the overlay pass.  Also the torch operations
+    of one ``env_step``, one frame prep and one reset of a replenish
+    chunk, since the host's dispatch of them bounds the step."""
     from procgen_tpu_torch.core import lifecycle
     from procgen_tpu_torch.parallel import vec
     from procgen_tpu_torch.render import render_kernel as rk
@@ -717,6 +855,13 @@ def step_split(carry, actions, name, torch):
         t = lap("kernel", t)
         post(game, carry.states, out.to(torch.int32), 64).to(torch.uint8)
         lap("post", t)
+    chunk = vec._tree_gather(carry.states, torch.arange(k, device=dev))
+    ops = {
+        "env_step": torch_ops(lambda: lifecycle.env_step(game, carry.states, actions[0])),
+        "frame prep": torch_ops(lambda: rk.prep(plan, carry.states) if plan.static
+                                else rk.prep_frame(plan, carry.states)),
+        f"env_reset of {k} envs": torch_ops(lambda: lifecycle.env_reset(game, chunk)),
+    }
     rk.LAUNCHES.update(saved)
     n = len(actions)
     ms = {k_: v * 1e3 / n for k_, v in acc.items()}
@@ -726,7 +871,7 @@ def step_split(carry, actions, name, torch):
         "render prep": ms["prep"],
         "render kernel": ms["kernel"],
         "render post": ms["post"],
-    }
+    }, ops
 
 
 if __name__ == "__main__":

@@ -5,15 +5,16 @@ as eager torch tensors on one device, with the JAX package's per-step
 Pallas frame kernel rewritten as CUDA kernels for NVIDIA Hopper:
 csrc/render_suffix.cu (the sprite suffix over a cached per-level frame,
 maze) and csrc/render_frame.cu (the whole frame of a game that is not
-static, miner).  It imports torch and numpy, never jax or procgen_tpu.
-The entry points run on the card (``device="cuda"``) unless the caller
-passes ``device="cpu"``.  So far it covers maze and miner in easy and hard
-mode (ROADMAP.md lists what comes next).
+static: miner, coinrun, fruitbot).  It imports torch and numpy, never jax
+or procgen_tpu.  The entry points run on the card (``device="cuda"``)
+unless the caller passes ``device="cpu"``.  So far it covers maze, miner,
+coinrun and fruitbot in easy and hard mode (ROADMAP.md lists what comes
+next).
 """
 
 __version__ = "0.1.0"
 
-ENV_NAMES = ["maze", "miner", "coinrun"]
+ENV_NAMES = ["maze", "miner", "coinrun", "fruitbot"]
 
 # Python-only "exploration" distribution mode fixes one hard level
 # (reference: procgen/env.py:52-61).

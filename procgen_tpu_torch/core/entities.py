@@ -214,6 +214,24 @@ class Entities:
         return self.replace(count=new_count, **upd)
 
 
+def stack_records(recs: list[dict], n: int, device) -> dict:
+    """[N, K] tensors, field by field, of K records whose values are
+    scalars or [N] tensors (each field in its entity dtype), for
+    ``Entities.push_many``.  A field that is a scalar in every record
+    becomes one tensor, not K."""
+    out = {}
+    for k in recs[0]:
+        vals = [r[k] for r in recs]
+        dt = _dtype(k)
+        if any(torch.is_tensor(v) for v in vals):
+            out[k] = torch.stack([
+                torch.as_tensor(v, device=device).to(dt).expand(n) for v in vals
+            ], dim=1)
+        else:
+            out[k] = torch.tensor(vals, dtype=dt, device=device).expand(n, len(vals))
+    return out
+
+
 def default_fields(x, y, vx, vy, rx, ry, type_) -> dict[str, Any]:
     """Entity constructor defaults (entity.cpp:8-52); ``type_`` is a
     Python int here (the maze slice spawns only static types)."""

@@ -4,14 +4,16 @@ The counterpart of ``procgen_tpu.core.game``.  A game is a plain Python
 class holding static configuration; all dynamic data lives in
 ``BasicState``, a dataclass of batch-first tensors with the JAX package's
 field names, dtypes and per-env shapes behind a leading ``[N]`` axis.  The
-port carries the subset of ``BasicAbstractGame`` that maze, miner and
-coinrun reach: grid-step and sub-stepped continuous movement (the agent
-with the entity-scan hook, the other smart movers batched over a
-compacted slot window), the vectorised collision dispatch with the
-agent's grid probe, erase of both pools, the grid reads and writes, the
-reset path's RNG helpers and ``game_reset_base``.  The sequential entity
-scan, push chains and the sequential collision scan of the other games
-are queued in ROADMAP.md.
+port carries the subset of ``BasicAbstractGame`` that maze, miner,
+coinrun and fruitbot reach: grid-step and sub-stepped continuous movement
+(the agent with the entity-scan hook, the other smart movers batched over
+a compacted slot window), the vectorised collision dispatch with the
+agent's grid probe and the entity-pair hook, erase of both pools, the
+grid reads and writes, the reset path's RNG helpers, the rejection
+placement of ``reposition`` (``place_by_rejection``, batched over the
+envs), the sprite aspect-ratio fit and ``game_reset_base``.  The
+sequential entity scan, push chains and the sequential collision scan of
+the other games are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -787,6 +789,24 @@ class BasicAbstractGame:
         g, v = rng.randrange(s.rand_gen, lo, hi)
         return s.replace(rand_gen=g), v
 
+    def aspect_ratios(self, type_: int, device) -> torch.Tensor:
+        """Per-theme aspect ratio table of a (static) type, f32."""
+        from ..render.assets import aspect_for
+
+        names = self.asset_names(type_)
+        return torch.tensor([aspect_for(n) for n in names] or [1.0],
+                            dtype=f32, device=device)
+
+    def fit_aspect_ratio(self, s: BasicState, mask, ar) -> BasicState:
+        """fit_aspect_ratio (cpp:1034-1045) of every slot where ``mask``
+        ([N, cap]), ``ar`` being each slot's aspect ratio ([N, cap] f32):
+        the longer side keeps its radius."""
+        e = s.ents
+        ry = torch.where(ar > 1, e.rx / ar, e.ry)
+        rx = torch.where(ar > 1, e.rx, e.ry * ar)
+        return s.replace(ents=e.replace(rx=torch.where(mask, rx, e.rx),
+                                        ry=torch.where(mask, ry, e.ry)))
+
     def game_reset_base(self, s: BasicState) -> BasicState:
         """BasicAbstractGame::game_reset (cpp:767-806)."""
         n = s.num
@@ -856,3 +876,48 @@ def first_true(mask: torch.Tensor) -> torch.Tensor:
     ar = torch.arange(n, device=mask.device).expand_as(mask)
     idx = torch.where(mask, ar, n).amin(dim=-1)
     return torch.where(idx == n, 0, idx)
+
+
+def _rand_pos_draws(d: rng.Draws, cond, r, lo, hi):
+    """rand_pos (cpp:1109-1117, the JAX package's ``_rand_pos_raw``) on a
+    peeked window: uniform in [lo + r, hi - r], drawn where ``cond``, where
+    the span exceeds 2r; else the span's centre, with no draw."""
+    need = torch.as_tensor((hi - lo) > 2 * r, device=cond.device)
+    d, v = d.rand01_if(cond & need)
+    return d, torch.where(need, (hi - lo - 2 * r) * v + r + lo, (hi + lo) / 2)
+
+
+def place_by_rejection(d: rng.Draws, blockers, rx, ry, x, y, w, h, do,
+                       max_tries: int = 100):
+    """``reposition``'s rejection placement (cpp:550-568) on a peeked
+    window ``d``, batched over the envs: every env where ``do`` draws a
+    position, then redraws while it overlaps a blocker, at most
+    ``max_tries`` times.  ``blockers``: (x, y, rx, ry, mask) tensors of
+    [N, M] boxes, the mask marking the ones that count.  Each round draws
+    only for the envs still colliding and costs one host read, of whether
+    any is; an env that has placed draws nothing more.  The window must
+    hold ``2 * (max_tries + 1)`` words past the cursor.  Returns (d, px,
+    py), [N] each."""
+
+    def try_place(d, m):
+        d, px = _rand_pos_draws(d, m, rx, x, x + w)
+        d, py = _rand_pos_draws(d, m, ry, y, y + h)
+        return d, px, py
+
+    def collides(px, py):
+        hit = torch.zeros_like(do)
+        for bx, by, brx, bry, m in blockers:
+            ov = ((torch.abs(px[:, None] - bx) < rx + brx)
+                  & (torch.abs(py[:, None] - by) < ry + bry) & m)
+            hit = hit | ov.any(dim=1)
+        return hit
+
+    d, px, py = try_place(d, do)
+    for _ in range(max_tries):
+        redo = do & collides(px, py)
+        if not bool(redo.any()):
+            break
+        d, px2, py2 = try_place(d, redo)
+        px = torch.where(redo, px2, px)
+        py = torch.where(redo, py2, py)
+    return d, px, py

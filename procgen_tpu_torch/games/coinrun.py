@@ -17,7 +17,7 @@ import torch
 
 from ..core import rng
 from ..core.constants import EASY_MODE, PLAYER, TRAIL
-from ..core.entities import default_fields
+from ..core.entities import default_fields, stack_records
 from ..core.game import BasicAbstractGame, BasicState, _where, per_env
 from .registry import register
 
@@ -307,21 +307,6 @@ class Coinrun(BasicAbstractGame):
         s = self.fill_elem(s, x, y, dx, dy - 1, fill)
         return self.fill_elem(s, x, y + dy - 1, dx, 1, top)
 
-    @staticmethod
-    def _stack_records(recs: list[dict], like) -> dict:
-        """[N, K] tensors, field by field, of K records of scalars or [N]
-        tensors (each field in its entity dtype)."""
-        from ..core.entities import _dtype
-
-        n = like.shape[0]
-        return {
-            k: torch.stack([
-                torch.as_tensor(r[k], device=like.device).to(_dtype(k)).expand(n)
-                for r in recs
-            ], dim=1)
-            for k in recs[0]
-        }
-
     def _saw_record(self, x, y):
         return default_fields(x + 0.5, y + 0.5, 0.0, 0.0, 0.5, 0.5, SAW)
 
@@ -548,7 +533,7 @@ class Coinrun(BasicAbstractGame):
 
         s = s.replace(
             ents=s.ents.push_many(
-                self._stack_records(all_recs, curr_x), torch.stack(all_dos, dim=1)
+                stack_records(all_recs, n, dev), torch.stack(all_dos, dim=1)
             )
         )
 

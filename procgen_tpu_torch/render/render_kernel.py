@@ -9,11 +9,11 @@ The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
   it reproduces the Pallas kernel's K1a (start from the cached frame), K1b
   (per-slot sampling into premultiplied bf16 canvases, one per z level)
   and K1c (composite z=0 then z=1, round, u8).
-* the whole-frame path of a game that is not static, with the standard
-  background crop, which miner and coinrun take, under the static camera
-  or the agent-centred one.  ``render_frame`` launches
-  ``csrc/render_frame.cu``; it adds the Pallas kernel's K1d (background
-  crop), the z=-1 composite, K1e (grid tiles from the camera's cell
+* the whole-frame path of a game that is not static, which miner, coinrun
+  and fruitbot take, under the static camera or the agent-centred one.
+  ``render_frame`` launches ``csrc/render_frame.cu``; it adds the Pallas
+  kernel's K1d (the background: the standard crop, or fruitbot's vertical
+  tiling), the z=-1 composite, K1e (grid tiles from the camera's cell
   window), K1f (colored cells) and the decor pool, painted into its own
   canvases and composited after the entity pool's at each z.  Each pool is
   walked to its live count; the TPU kernel's grouped pass (K2) paints the
@@ -39,7 +39,9 @@ import torch
 
 from ..core.constants import SPACE
 from .atlas import ROT_OVERHANG, get_atlases
-from .renderer import bg_width, camera, fdiv, grid_rows, grid_window, post
+from .renderer import (
+    bg_width, camera, fdiv, grid_rows, grid_window, post, tile_height,
+)
 
 f32 = torch.float32
 i32 = torch.int32
@@ -61,6 +63,9 @@ SF_N = 13
 # per-env scalar columns, int32 (:73-74)
 SI_BGROW, SI_ENT_COUNT, SI_DEC_COUNT = range(3)
 SI_N = 3
+# K1d's background modes, one per launch: none, the standard crop with the
+# random x offset (SF_BGRX, SF_BGRW), the vertical tiling (SF_TILEH)
+BG_NONE, BG_CROP, BG_TILED = range(3)
 
 # Launches of each CUDA kernel since import (or since a caller reset
 # them); each wrapper adds one to its own count per launch and nothing
@@ -107,7 +112,9 @@ class RenderPlan:
             # rows below this one are tiles that cover their cell
             self.grid_opaque = grid_atlas.transparent_row
             self.arrays["grid"] = grid_atlas.rows  # [n_rows, sA, sA, 4] u8
-            self.use_bg = bg_atlas is not None and game.options.use_backgrounds
+            use_bg = bg_atlas is not None and game.options.use_backgrounds
+            self.bg_mode = (BG_NONE if not use_bg else
+                            BG_TILED if game.bg_tile_ratio < 0 else BG_CROP)
             if bg_atlas is not None:
                 self.arrays["bg"] = bg_atlas.pixels  # [nb, BH, BW, 3] u8
                 self.bg_aspects = np.asarray(bg_atlas.aspects, np.float32)
@@ -152,9 +159,10 @@ def supports(game, res: int = RES) -> bool:
     """Games whose per-step frame this module reproduces: the JAX gate
     (procgen_tpu/render/pallas_kernel.py:204-215) restricted to the ported
     paths, textured, and either the static prefix with the entity pool
-    alone at z in (0, 1), or the whole frame with the standard background
-    crop, z in (-1, 0, 1) in both pools, under the static camera or the
-    agent-centred one.  Tiled, scrolled and procedural backgrounds,
+    alone at z in (0, 1), or the whole frame with a fixed background image,
+    cropped (``bg_tile_ratio >= 0``) or tiled vertically (``bg_tile_ratio <
+    0``, fruitbot), z in (-1, 0, 1) in both pools, under the static camera
+    or the agent-centred one.  Scrolled and procedural backgrounds,
     monochrome sprites, the decor pool on the static path, and memory
     mode's rules (ROADMAP) are not ported."""
     from ..core.constants import MEMORY_MODE
@@ -175,7 +183,6 @@ def supports(game, res: int = RES) -> bool:
     return (
         not getattr(game, "DYNAMIC_VISIBILITY", False)
         and game.PALLAS_BG == "standard"
-        and game.bg_tile_ratio >= 0
         and not game.uses_procgen_background
         and all(len(set(lv)) == len(lv) and set(lv) <= {-1, 0, 1}
                 for lv in (z, dz))
@@ -307,7 +314,8 @@ class FrameInputs:
     ``ent_atlas`` [2*n1e, S, S, 4]; ``z_slots`` / ``dz_slots``, each
     pool's canvas index of z = -1, 0, 1 (-1 for none) among its ``nz`` /
     ``nzd`` canvases; ``grid_opaque``, the first grid row that covers
-    nothing; ``use_bg``."""
+    nothing; ``bg_mode``, K1d's mode (``BG_NONE``, ``BG_CROP`` or
+    ``BG_TILED``)."""
 
     sf: torch.Tensor
     si: torch.Tensor
@@ -325,7 +333,7 @@ class FrameInputs:
     dz_slots: tuple
     nzd: int
     grid_opaque: int
-    use_bg: bool
+    bg_mode: int
 
     def to(self, device) -> "FrameInputs":
         return dataclasses.replace(self, **{
@@ -352,21 +360,25 @@ def prep_frame(plan: RenderPlan, s) -> FrameInputs:
     si = torch.zeros((n, SI_N), dtype=i32, device=dev)
     sf[:, SF_UNIT], sf[:, SF_VIS] = unit, vis
     sf[:, SF_XOFF], sf[:, SF_YOFF] = x_off, y_off
-    if plan.use_bg:
-        # standard crop with the random x offset (:271-302)
+    if plan.bg_mode != BG_NONE:
+        # the world rect (:271-279), then the tiling (:292-295) or the
+        # standard crop with the random x offset (:296-302)
         mr_x = -x_off
         mr_y = (vis - h) * unit + y_off
         mr_w = w * unit
         mr_h = h * unit
         bi = s.background_index.clamp(0, plan.bg_aspects.shape[0] - 1)
-        bg_ar = torch.as_tensor(plan.bg_aspects, device=dev)[bi.long()]
-        world_ar = w / h
-        extra_w = bg_ar - world_ar
-        offx = s.bg_pct_x * extra_w
         sf[:, SF_MRX], sf[:, SF_MRY] = mr_x, mr_y
         sf[:, SF_MRW], sf[:, SF_MRH] = mr_w, mr_h
-        sf[:, SF_BGRX] = mr_x + mr_w * (-offx)
-        sf[:, SF_BGRW] = bg_width(mr_w, bg_ar, w, h)
+        if plan.bg_mode == BG_TILED:
+            sf[:, SF_TILEH] = tile_height(mr_w, mr_h, -game.bg_tile_ratio)
+        else:
+            bg_ar = torch.as_tensor(plan.bg_aspects, device=dev)[bi.long()]
+            world_ar = w / h
+            extra_w = bg_ar - world_ar
+            offx = s.bg_pct_x * extra_w
+            sf[:, SF_BGRX] = mr_x + mr_w * (-offx)
+            sf[:, SF_BGRW] = bg_width(mr_w, bg_ar, w, h)
         si[:, SI_BGROW] = bi
     si[:, SI_ENT_COUNT] = s.ents.count
     if plan.dz_levels:
@@ -395,7 +407,7 @@ def prep_frame(plan: RenderPlan, s) -> FrameInputs:
         ent_atlas=plan.atlas(dev), z_slots=plan.z_slots,
         nz=len(plan.z_levels), dz_slots=plan.dz_slots,
         nzd=len(plan.dz_levels), grid_opaque=plan.grid_opaque,
-        use_bg=plan.use_bg,
+        bg_mode=plan.bg_mode,
     )
 
 
@@ -567,32 +579,47 @@ def grid_lookup(x: FrameInputs):
     return wxs, wys, inside, crow, ccol, row, tex
 
 
-def render_frame_reference(x: FrameInputs):
-    """Plain torch whole frame: the function of ``csrc/render_frame.cu``
-    (background crop, z=-1, grid tiles, colored cells, z=0, z=1; at each z
-    the entity pool's canvas, then the decor pool's), with the Pallas
-    kernel's index derivations.  Returns uint8 [N, 64, 64, 3]."""
+def background_lookup(x: FrameInputs):
+    """K1d's per-pixel indices, tiled (pallas_kernel.py:646-655) or cropped
+    (:656-666).  Returns ``bi`` [N], the clamped background image;
+    ``row_idx`` and ``in_y`` [N, 64], the image row of each pixel row and
+    whether the row lies in the world rect; ``col_idx`` and ``in_x`` [N,
+    64], the same for the pixel columns."""
     sf = x.sf
-    n = sf.shape[0]
-    dev = sf.device
-    pix = (torch.arange(RES, dtype=f32, device=dev) + 0.5)[None, :]  # [1, 64]
+    BH, BW = x.bg_atlas.shape[1], x.bg_atlas.shape[2]
+    pix = (torch.arange(RES, dtype=f32, device=sf.device) + 0.5)[None, :]
 
     def col(k):
         return sf[:, k:k + 1]  # [N, 1]
 
+    mr_y, mr_h = col(SF_MRY), col(SF_MRH)
+    if x.bg_mode == BG_TILED:
+        fy = (pix - mr_y) / col(SF_TILEH)
+        row_idx = ((fy - torch.floor(fy)) * BH).to(i32).clamp(0, BH - 1)
+        bgr_x, bgr_w = col(SF_MRX), col(SF_MRW)
+    else:
+        row_idx = ((pix - mr_y) / mr_h * BH).to(i32).clamp(0, BH - 1)
+        bgr_x, bgr_w = col(SF_BGRX), col(SF_BGRW)
+    col_idx = ((pix - bgr_x) / bgr_w * BW).to(i32).clamp(0, BW - 1)
+    in_y = (pix >= mr_y) & (pix < mr_y + mr_h)
+    in_x = (pix >= bgr_x) & (pix < bgr_x + bgr_w)
+    bi = x.si[:, SI_BGROW].long().clamp(0, x.bg_atlas.shape[0] - 1)
+    return bi, row_idx, col_idx, in_y, in_x
+
+
+def render_frame_reference(x: FrameInputs):
+    """Plain torch whole frame: the function of ``csrc/render_frame.cu``
+    (background, z=-1, grid tiles, colored cells, z=0, z=1; at each z the
+    entity pool's canvas, then the decor pool's), with the Pallas kernel's
+    index derivations.  Returns uint8 [N, 64, 64, 3]."""
+    n = x.sf.shape[0]
+    dev = x.sf.device
     nidx = torch.arange(n, device=dev)[:, None, None]
 
-    # K1d: background crop (pallas_kernel.py:656-666)
+    # K1d: the background
     obs = torch.zeros((n, RES, RES, 3), dtype=f32, device=dev)
-    if x.use_bg:
-        BH, BW = x.bg_atlas.shape[1], x.bg_atlas.shape[2]
-        mr_y, mr_h = col(SF_MRY), col(SF_MRH)
-        bgr_x, bgr_w = col(SF_BGRX), col(SF_BGRW)
-        row_idx = ((pix - mr_y) / mr_h * BH).to(i32).clamp(0, BH - 1)
-        col_idx = ((pix - bgr_x) / bgr_w * BW).to(i32).clamp(0, BW - 1)
-        in_y = (pix >= mr_y) & (pix < mr_y + mr_h)
-        in_x = (pix >= bgr_x) & (pix < bgr_x + bgr_w)
-        bi = x.si[:, SI_BGROW].long().clamp(0, x.bg_atlas.shape[0] - 1)
+    if x.bg_mode != BG_NONE:
+        bi, row_idx, col_idx, in_y, in_x = background_lookup(x)
         samp = x.bg_atlas[bi[:, None, None], row_idx.long()[:, :, None],
                           col_idx.long()[:, None, :]]
         m = (in_y[:, :, None] & in_x[:, None, :])[..., None]
@@ -644,10 +671,12 @@ def render_frame(x: FrameInputs):
                 and all(-1 <= z < x.nz for z in x.z_slots)
                 and all(-1 <= z < x.nzd for z in x.dz_slots))
     if (not 1 <= x.nz or x.nzd < 0 or x.nz + x.nzd > MAX_CANVASES
-            or smem > 48 * 1024 or not slots_ok):
+            or smem > 48 * 1024 or not slots_ok
+            or x.bg_mode not in (BG_NONE, BG_CROP, BG_TILED)):
         raise ValueError(
             f"render_frame: nz={x.nz}, nzd={x.nzd}, z_slots={x.z_slots}, "
-            f"dz_slots={x.dz_slots}, cap={cap} or dcap={dcap} out of range"
+            f"dz_slots={x.dz_slots}, cap={cap}, dcap={dcap} or "
+            f"bg_mode={x.bg_mode} out of range"
         )
     dev = _check("render_frame", [
         ("sf", x.sf, f32, (n, SF_N)),
@@ -671,7 +700,7 @@ def render_frame(x: FrameInputs):
         x.dec_i.data_ptr(), ga.data_ptr(), bg.data_ptr(), ea.data_ptr(),
         out.data_ptr(),
         n, cap, dcap, x.nz, x.nzd, *x.z_slots, *x.dz_slots, NC, ga.shape[1],
-        ga.shape[0], x.grid_opaque, int(x.use_bg), bg.shape[0], bg.shape[1],
+        ga.shape[0], x.grid_opaque, x.bg_mode, bg.shape[0], bg.shape[1],
         bg.shape[2], ea.shape[1], ea.shape[0],
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -715,7 +744,7 @@ def synthetic_slots(n: int, cap: int, n_rows: int, seed: int = 0):
 
 def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
                            ent_atlas, grid_opaque: int, seed: int = 0,
-                           dcap: int = 0):
+                           dcap: int = 0, bg_mode: int = BG_CROP):
     """Made-up ``FrameInputs`` (CPU tensors, the given atlases) covering
     what real textured states do not reach: valid colored cells with an
     inset below 1, cells covered by a tile and uncovered, background rects
@@ -724,7 +753,10 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
     capacity (slots past them must not paint), and with ``dcap`` a full
     decor pool with its canvas at z = 0, as every game with one has it
     (z indices past it clip to it), besides the slot modes of
-    ``synthetic_slots``.  Built with numpy from ``seed``."""
+    ``synthetic_slots``.  With ``bg_mode=BG_TILED``, tiled backgrounds:
+    world rects up to six frames tall, starting above, inside or below the
+    frame and partly off it sideways, with tile heights from 2 to 70 px
+    that need not divide the rect.  Built with numpy from ``seed``."""
     rng = np.random.RandomState(seed)
     sf = np.zeros((n, SF_N), np.float32)
     vis = rng.choice([NC, NC + 0.5, NC * 1.3], n).astype(np.float32)
@@ -759,6 +791,13 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
     ent_i[..., EI_Z] = torch.as_tensor(rng.choice([-1, 0, 1, 2], (n, cap)))
     dec_f, dec_i = synthetic_slots(n, dcap, ent_atlas.shape[0], seed=seed + 1)
     dec_i[..., EI_Z] = torch.as_tensor(rng.choice([-1, 0, 0, 1], (n, dcap)))
+    if bg_mode == BG_TILED:
+        sf[:, SF_MRX] = rng.uniform(-40, 60, n)
+        sf[:, SF_MRW] = rng.uniform(8, 120, n)
+        sf[:, SF_MRH] = rng.uniform(20, 400, n)
+        sf[:, SF_MRY] = rng.uniform(-360, 50, n)
+        sf[:, SF_TILEH] = np.where(rng.rand(n) < 0.5, rng.uniform(2, 70, n),
+                                   sf[:, SF_MRH] / rng.randint(1, 8, n))
     return FrameInputs(
         sf=torch.as_tensor(sf), si=torch.as_tensor(si),
         gtab=torch.as_tensor(gtab), cell5=torch.as_tensor(cell5),
@@ -766,7 +805,7 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
         grid_atlas=grid_atlas, bg_atlas=bg_atlas, ent_atlas=ent_atlas,
         z_slots=(0, 1, 2), nz=3,
         dz_slots=(-1, 0, -1) if dcap else (-1, -1, -1), nzd=1 if dcap else 0,
-        grid_opaque=grid_opaque, use_bg=True,
+        grid_opaque=grid_opaque, bg_mode=bg_mode,
     )
 
 

@@ -11,7 +11,7 @@ the JAX renderer is kept.
 This is the path of the per-level static prefix (``prefix_only``), which
 the JAX package also computes outside its Pallas kernel, the plain oracle
 of the per-step suffix (``base``), and, with neither, the plain oracle of
-the whole frame of a game that is not static (miner).
+the whole frame of a game that is not static (miner, coinrun, fruitbot).
 """
 
 from __future__ import annotations
@@ -219,8 +219,9 @@ def _sample_grid(grid, celly, cellx, hmax, wmax, oob_val):
 
 def _paint_background(game, s, obs, sx, sy, res, unit, vis, pix, bi, bg_ar):
     """draw_background (cpp:988-1016): the aspect-preserving crop with the
-    random x offset.  ``pix`` is the atlas [nb, BH, BW, 3] u8, ``bi`` the
-    per-env image index."""
+    random x offset, or, for a negative ``bg_tile_ratio``, the image tiled
+    vertically over the world (tile_image, cpp:849-878).  ``pix`` is the
+    atlas [nb, BH, BW, 3] u8, ``bi`` the per-env image index."""
     BH, BW = pix.shape[1], pix.shape[2]
     W = s.main_width.to(f32)
     H = s.main_height.to(f32)
@@ -231,14 +232,22 @@ def _paint_background(game, s, obs, sx, sy, res, unit, vis, pix, bi, bg_ar):
     mr_y = (vis - H) * unit + y_off
     mr_w = W * unit
     mr_h = H * unit
+    c = lambda t: t[:, None]  # noqa: E731  [N] -> [N, 1]
     if game.bg_tile_ratio < 0:
-        raise NotImplementedError("tiled backgrounds not ported (ROADMAP)")
+        fy = (sy - c(mr_y)) / c(tile_height(mr_w, mr_h, -game.bg_tile_ratio))
+        row_idx = ((fy - torch.floor(fy)) * BH).to(i32).clamp(0, BH - 1)
+        col_idx = ((sx - c(mr_x)) / c(mr_w) * BW).to(i32).clamp(0, BW - 1)
+        in_y = (sy >= c(mr_y)) & (sy < c(mr_y) + c(mr_h))
+        in_x = (sx >= c(mr_x)) & (sx < c(mr_x) + c(mr_w))
+        samp = pix[bi[:, None, None], row_idx.long()[:, :, None],
+                   col_idx.long()[:, None, :]]
+        m = (in_y[:, :, None] & in_x[:, None, :])[..., None]
+        return torch.where(m, samp.to(i32), 0)
     world_ar = W / H
     extra_w = bg_ar - world_ar
     offx = s.bg_pct_x * extra_w
     bgr_x = mr_x + mr_w * (-offx)
     bgr_w = bg_width(mr_w, bg_ar, W, H)
-    c = lambda t: t[:, None]  # noqa: E731  [N] -> [N, 1]
     row_idx = ((sy - c(mr_y)) / c(mr_h) * BH).to(i32).clamp(0, BH - 1)
     col_idx = ((sx - c(bgr_x)) / c(bgr_w) * BW).to(i32).clamp(0, BW - 1)
     in_y = (sy >= c(mr_y)) & (sy < c(mr_y) + c(mr_h))
@@ -254,6 +263,14 @@ def bg_width(mr_w, bg_ar, w, h):
     package computes it: XLA's algebraic simplifier rewrites
     ``a / (b / c)`` to ``a * c / b``, which can differ in the last bit."""
     return mr_w * bg_ar * h / w
+
+
+def tile_height(mr_w, mr_h, ratio):
+    """The height of one background tile (tile_image, cpp:849-878): the
+    world rect ``mr_h`` high split into ``max(int(mr_h / (mr_w * ratio)),
+    1)`` tiles."""
+    num_tiles = torch.clamp_min((mr_h / (mr_w * ratio)).to(i32), 1)
+    return mr_h / num_tiles.to(f32)
 
 
 def _sprite_canvases(game, s, pool, mask, atlas, res, unit, vis, x_off,
@@ -304,7 +321,9 @@ def _sprite_canvases(game, s, pool, mask, atlas, res, unit, vis, x_off,
     nz = len(z_levels)
     canv = torch.zeros((nz, n, res, res, 4), dtype=bf16, device=dev)
     ones = torch.ones((n, res, res, 1), dtype=f32, device=dev)
-    for i in range(cap):
+    # slots past every env's live count blend with alpha 0, an exact
+    # identity on the bf16 canvases: the walk stops at the largest count
+    for i in range(min(cap, int(e.count.max())) if n else 0):
         rot = e.rotation[:, i]
         qf = rot * (2.0 / torch.pi)
         q = torch.remainder(torch.round(qf).to(i32), 4)

@@ -19,6 +19,7 @@ from procgen_tpu_torch.core.options import GameOptions
 from procgen_tpu_torch.core import lifecycle
 from procgen_tpu_torch.core.constants import INT32_MAX
 from procgen_tpu_torch.games.coinrun import Coinrun
+from procgen_tpu_torch.games.fruitbot import Fruitbot
 from procgen_tpu_torch.games.maze import Maze
 from procgen_tpu_torch.games.miner import Miner
 from procgen_tpu_torch.render import render_kernel as rk
@@ -278,6 +279,96 @@ def test_cuda_frame_kernel_matches_plain_version():
             s, _ = lifecycle.env_step(game, s, torch.as_tensor(a, device=dev))
         inputs.append(rk.prep_frame(rk.get_plan(game), s))
     for x in inputs:
+        before = rk.LAUNCHES["render_frame"]
+        got = rk.render_frame(x)
+        want = rk.render_frame_reference(x)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["render_frame"] == before + 1
+        assert torch.equal(got, want)
+
+
+def _fruitbot(mode=0, centred=False):
+    game = Fruitbot(GameOptions(distribution_mode=mode, center_agent=centred))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    return game
+
+
+def _synthetic_tiled(n, cap, seed=0, device="cpu"):
+    plan = rk.get_plan(_fruitbot())
+    return rk.synthetic_frame_inputs(
+        n, plan.NC, cap, plan.on("grid", device), plan.on("bg", device),
+        plan.atlas(device), plan.grid_opaque, seed=seed, bg_mode=rk.BG_TILED,
+    ).to(device)
+
+
+def test_synthetic_frame_covers_tiling():
+    """The made-up tiled batch: tile heights that do not divide the world
+    rect, rects above, across and below the frame and partly off it
+    sideways; the tiled background reaches the frame and differs from the
+    crop of the same scalars."""
+    x = _synthetic_tiled(64, 4)
+    assert x.bg_mode == rk.BG_TILED
+    sf = x.sf
+    mr_x, mr_y = sf[:, rk.SF_MRX], sf[:, rk.SF_MRY]
+    mr_w, mr_h = sf[:, rk.SF_MRW], sf[:, rk.SF_MRH]
+    tiles = mr_h / sf[:, rk.SF_TILEH]
+    assert (torch.abs(tiles - torch.round(tiles)) > 0.05).any()
+    assert (torch.abs(tiles - torch.round(tiles)) < 1e-4).any()
+    assert (mr_y < 0).any() and (mr_y > 0).any() and (mr_y + mr_h < 64).any()
+    assert (mr_x < 0).any() and (mr_x + mr_w > 64).any()
+    crop = dataclasses.replace(x, bg_mode=rk.BG_CROP)
+    assert not torch.equal(rk.render_frame_reference(x), rk.render_frame_reference(crop))
+
+
+def test_tiled_background_repeats_by_tile_height():
+    """One env, nothing over the background: pixel row r shows image row
+    int(frac((r + 0.5 - mr_y) / tile_h) * BH) inside the world rect, and
+    black outside it; rows one tile apart match."""
+    x = _synthetic_tiled(1, 1, seed=5)
+    x.ent_i[..., rk.EI_LIVE] = 0
+    x.gtab.fill_(x.grid_opaque)
+    x.cell5[:, 3] = 0
+    x.sf[0, rk.SF_MRX], x.sf[0, rk.SF_MRW] = 0.0, 64.0
+    x.sf[0, rk.SF_MRY], x.sf[0, rk.SF_MRH], x.sf[0, rk.SF_TILEH] = -3.0, 60.0, 20.0
+    out = rk.render_frame_reference(x)[0]
+    img = x.bg_atlas[int(x.si[0, rk.SI_BGROW].clamp(0, x.bg_atlas.shape[0] - 1))]
+    BH, BW = img.shape[0], img.shape[1]
+    for r in range(64):
+        if r + 0.5 >= 57.0:
+            assert not out[r].any()
+            continue
+        row = int((((r + 0.5 + 3.0) / 20.0) % 1.0) * BH)
+        cols = (np.arange(64) + 0.5) / 64.0 * BW
+        assert torch.equal(out[r], img[row, cols.astype(np.int64)])
+    assert torch.equal(out[5], out[25]) and torch.equal(out[25], out[45])
+
+
+def test_frame_bad_bg_mode_raises():
+    x = dataclasses.replace(_synthetic_tiled(2, 2), bg_mode=3)
+    with pytest.raises(ValueError, match="out of range"):
+        rk.render_frame(x)
+
+
+@pytest.mark.cuda
+def test_cuda_frame_kernel_tiled_matches_plain_version():
+    """The tiled background: made-up rects and tile heights, and fruitbot
+    easy and hard states (112-slot pools, tiled barriers and doors, the
+    agent's quarter turn) under both cameras."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    inputs = [_synthetic_tiled(256, 24, seed=6, device=dev)]
+    seeds = torch.arange(64, dtype=torch.int64, device=dev) * 7919 + 5
+    for mode in (0, 1):
+        game = _fruitbot(mode)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        acts = np.random.RandomState(mode).choice([1, 4, 7, 9], (20, 64))
+        for a in acts:
+            s, _ = lifecycle.env_step(game, s, torch.as_tensor(a, device=dev))
+        for centred in (False, True):
+            inputs.append(rk.prep_frame(rk.get_plan(_fruitbot(mode, centred)), s))
+    for x in inputs:
+        assert x.bg_mode == rk.BG_TILED
         before = rk.LAUNCHES["render_frame"]
         got = rk.render_frame(x)
         want = rk.render_frame_reference(x)

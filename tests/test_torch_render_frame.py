@@ -19,31 +19,47 @@ whole-world 64x64 one) are held against the Pallas kernel in
 tests/test_torch_coinrun.py, whose JAX reference runs without fused
 multiply-adds.
 
+Made-up tiled backgrounds (fruitbot's K1d mode): fruitbot-easy states
+with world sizes whose height is not a whole number of wide tiles (so the
+tile height does not divide into square tiles and falls between pixel
+rows) and agents anywhere (so the world rect lies partly off the frame,
+above or below it), under both cameras; their frames and ``prep_frame``
+scalars against the Pallas kernel in interpret mode, the XLA ``render_obs``
+and ``_prep_one``.  Their JAX side runs in a child process held to AVX,
+as in tests/test_torch_coinrun.py: the camera offsets of these states are
+not zero, and XLA's CPU backend would fuse their multiply-adds.
+
 Tolerance: zero — every frame and every prep value must match exactly.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-from flax import serialization
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from procgen_tpu.core import lifecycle as jlife
-from procgen_tpu.core.constants import INT32_MAX
-from procgen_tpu.core.options import GameOptions as JGameOptions
-from procgen_tpu.games.miner import Miner as JMiner
-from procgen_tpu.render import pallas_kernel
-from procgen_tpu.render.renderer import render_obs as jrender_obs
-from procgen_tpu.utils.host_mt import HostMT19937
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from flax import serialization  # noqa: E402
 
-from procgen_tpu_torch.bridge import state_to_numpy
-from procgen_tpu_torch.core import lifecycle as tlife
-from procgen_tpu_torch.core.options import GameOptions
-from procgen_tpu_torch.games.miner import Miner as TMiner
-from procgen_tpu_torch.render import render_kernel as rk
-from procgen_tpu_torch.render.renderer import render_obs as trender_obs
+from procgen_tpu.core import lifecycle as jlife  # noqa: E402
+from procgen_tpu.core.constants import INT32_MAX  # noqa: E402
+from procgen_tpu.core.options import GameOptions as JGameOptions  # noqa: E402
+from procgen_tpu.games.miner import Miner as JMiner  # noqa: E402
+from procgen_tpu.render import pallas_kernel  # noqa: E402
+from procgen_tpu.render.renderer import render_obs as jrender_obs  # noqa: E402
+from procgen_tpu.utils.host_mt import HostMT19937  # noqa: E402
+
+from procgen_tpu_torch.bridge import state_to_numpy  # noqa: E402
+from procgen_tpu_torch.core import lifecycle as tlife  # noqa: E402
+from procgen_tpu_torch.core.options import GameOptions  # noqa: E402
+from procgen_tpu_torch.games.miner import Miner as TMiner  # noqa: E402
+from procgen_tpu_torch.render import render_kernel as rk  # noqa: E402
+from procgen_tpu_torch.render.renderer import render_obs as trender_obs  # noqa: E402
 
 N = 4
 
@@ -170,3 +186,149 @@ def test_supports_the_ported_paths_only():
         assert not rk.supports(g)
         with pytest.raises(NotImplementedError):
             rk.render_obs_batch(g, _states(g, 0, 0))
+
+
+# ---------------------------------------------------------------------------
+# made-up tiled backgrounds: fruitbot states, the JAX side in a child
+# ---------------------------------------------------------------------------
+
+TILED_N = 8
+TILED_CAMERAS = ("world", "centred")
+
+
+def _flat(d, pre=""):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, pre + k + "."))
+        elif v is not None:
+            out[pre + k] = np.asarray(v)
+    return out
+
+
+def _nest(flat):
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *path, leaf = k.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _fruitbot(centred=False):
+    from procgen_tpu_torch.games.fruitbot import Fruitbot
+
+    game = Fruitbot(GameOptions(distribution_mode=0, center_agent=centred))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    return game
+
+
+def _tiled_states():
+    """Fruitbot-easy states with made-up world sizes (3 to 10 wide, 17 to
+    60 high) and agents anywhere in them (two at the world's ends), after
+    a few steps."""
+    tg = _fruitbot()
+    master = HostMT19937(21)
+    seeds = np.array([master.next_u32() for _ in range(TILED_N)], np.int64)
+    s = tlife.env_reset(tg, tlife.initial_state(tg, torch.as_tensor(seeds)))
+    for a in np.random.RandomState(3).randint(0, 15, (3, TILED_N)):
+        s, _ = tlife.env_step(tg, s, torch.as_tensor(a))
+    rng = np.random.RandomState(8)
+    w = np.array([3, 7, 9, 10, 10, 6, 4, 10], np.int32)
+    h = np.array([17, 33, 47, 59, 60, 25, 60, 41], np.int32)
+    e = s.ents
+    ax = rng.uniform(0.5, w - 0.5).astype(np.float32)
+    ay = rng.uniform(0.5, h - 0.5).astype(np.float32)
+    ay[0], ay[1] = 0.5, h[1] - 0.5  # the world's bottom, its top in view
+    return s.replace(
+        main_width=torch.as_tensor(w), main_height=torch.as_tensor(h),
+        ents=e.set_fields(0, x=torch.as_tensor(ax), y=torch.as_tensor(ay)),
+        background_index=torch.as_tensor(rng.randint(0, 4, TILED_N).astype(np.int32)),
+    )
+
+
+def _jax_tiled(in_path, out_path):
+    """The JAX package's frames and prep scalars of the saved states, under
+    both cameras (child process)."""
+    from procgen_tpu.games.fruitbot import Fruitbot as JFruitbot
+    from procgen_tpu.render import atlas
+
+    jax.config.update("jax_platforms", "cpu")
+    with np.load(in_path) as z:
+        tree = _nest({k: z[k] for k in z.files})
+    out = {}
+    for cam in TILED_CAMERAS:
+        atlas._CACHE.clear()
+        pallas_kernel._PLANS.clear()
+        jg = JFruitbot(JGameOptions(distribution_mode=0,
+                                    center_agent=cam == "centred"))
+        template = jax.eval_shape(
+            jax.vmap(lambda sd: jlife.initial_state(jg, sd)),
+            jax.ShapeDtypeStruct((TILED_N,), jnp.uint32))
+        full = {k: tree.get(k) for k in serialization.to_state_dict(template)}
+        js = serialization.from_state_dict(
+            template, jax.tree_util.tree_map(jnp.asarray, full))
+        out[f"{cam}.pallas"] = np.asarray(jax.jit(
+            lambda st: pallas_kernel.render_obs_batch(jg, st, 64, interpret=True)
+        )(js))
+        out[f"{cam}.xla"] = np.asarray(
+            jax.jit(jax.vmap(lambda st: jrender_obs(jg, st, 64)))(js))
+        plan = pallas_kernel.get_plan(jg, 64)
+        out[f"{cam}.sf"] = np.asarray(
+            jax.jit(jax.vmap(lambda st: pallas_kernel._prep_one(plan, st)["sf"]))(js))
+    np.savez(out_path, **out)
+
+
+@pytest.fixture(scope="module")
+def tiled(tmp_path_factory):
+    """(the port's made-up states, the JAX child's arrays)."""
+    ts = _tiled_states()
+    d = tmp_path_factory.mktemp("tiled")
+    np.savez(d / "in.npz", **_flat(state_to_numpy(ts)))
+    flags = os.environ.get("XLA_FLAGS", "")
+    env = dict(
+        os.environ, JAX_PLATFORMS="cpu",
+        XLA_FLAGS=f"{flags} --xla_cpu_max_isa=AVX".strip(),
+        JAX_COMPILATION_CACHE_DIR=jax.config.jax_compilation_cache_dir or "",
+        JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="1",
+    )
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), str(d / "in.npz"),
+         str(d / "out.npz")], env=env, capture_output=True, text=True,
+        timeout=1800)
+    assert res.returncode == 0, res.stderr[-4000:]
+    with np.load(d / "out.npz") as z:
+        return ts, {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("cam", TILED_CAMERAS)
+def test_tiled_prep_matches_pallas_prep(cam, tiled):
+    """The tile height and the world rect, bit for bit: the tiles are not
+    square, and under the centred camera the rects run off the frame above
+    and below it."""
+    ts, want = tiled
+    game = _fruitbot(cam == "centred")
+    x = rk.prep_frame(rk.get_plan(game), ts)
+    np.testing.assert_array_equal(x.sf.numpy(), want[f"{cam}.sf"])
+    sf = x.sf
+    mr_y, mr_h, mr_w = sf[:, rk.SF_MRY], sf[:, rk.SF_MRH], sf[:, rk.SF_MRW]
+    assert (torch.abs(sf[:, rk.SF_TILEH] - mr_w) > 0.5).any()
+    if cam == "centred":
+        assert (mr_y < 0).any() and (mr_y + mr_h > 64).any()
+        assert ((mr_y > 0) | (mr_y + mr_h < 64)).any()
+
+
+@pytest.mark.parametrize("cam", TILED_CAMERAS)
+def test_tiled_frame_matches_pallas_and_xla(cam, tiled):
+    ts, want = tiled
+    game = _fruitbot(cam == "centred")
+    got = rk.render_obs_batch(game, ts).numpy()
+    np.testing.assert_array_equal(got, want[f"{cam}.pallas"])
+    np.testing.assert_array_equal(want[f"{cam}.xla"], want[f"{cam}.pallas"])
+    np.testing.assert_array_equal(trender_obs(game, ts, 64).numpy(), want[f"{cam}.xla"])
+
+
+if __name__ == "__main__":
+    _jax_tiled(sys.argv[1], sys.argv[2])
