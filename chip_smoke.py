@@ -49,11 +49,26 @@ the process exits non-zero):
               ``ProcgenGym3Env``; a 64-env one for 50 steps on the card
               and on the CPU, bit-equal; the fruitbot_easy recording
               replayed exactly on the card.
-7. profile  — 10 more steps of each slice under ``torch.profiler``:
+7. starpilot — ``core/libm.py``'s ``sincosf`` and ``atan2f`` on the card
+              against the same functions on the CPU, bit for bit, on
+              4,194,304 reset angles and 1,048,576 angles in (-120, 120)
+              (the sine and cosine of each) and 4,194,304 pairs;
+              ``render_frame`` with the time-scrolled
+              background against its plain version, byte for byte, on the
+              prep of 4096 starpilot-easy states after 50 random steps
+              under both cameras, of 4096 hard and 4096 extreme states and
+              on a made-up scrolled batch; the slice ``make_env_fns(4096,
+              "starpilot", device="cuda")``, one ``render_frame`` launch a
+              step; the kernel's time under both cameras; 100 timed steps
+              of a 4096-env centred ``ProcgenGym3Env``; a 64-env one for 50
+              steps on the card and on the CPU, bit-equal, every state leaf
+              included; the starpilot_easy recording replayed exactly on
+              the card.
+8. profile  — 10 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-8. result   — a JSON line of the kernels (``render_frame`` once for each
+9. result   — a JSON line of the kernels (``render_frame`` once for each
               path that launches it), the card line, and the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -175,7 +190,7 @@ def frame_bytes(x, rk, torch):
     other four planes of the valid ones among these, and the slots below
     each pool's live count; of the shared atlases, the rows this data
     samples (of the background images, the rows some pixel shows, tiled or
-    cropped)."""
+    cropped, or the texels some pixel shows, scrolled)."""
     n, NC = x.sf.shape[0], x.gtab.shape[1]
     dev = x.sf.device
     _, _, inside, crow, ccol, row, _ = rk.grid_lookup(x)
@@ -199,7 +214,16 @@ def frame_bytes(x, rk, torch):
     ga, ea, bg = x.grid_atlas, x.ent_atlas, x.bg_atlas
     atlas = (ent_rows.unique().numel() * ea[0].numel()
              + row[inside].unique().numel() * ga[0].numel())
-    if x.bg_mode != rk.BG_NONE:
+    if x.bg_mode == rk.BG_SCROLL:
+        # the scrolled tiles show each image row across a shifting window
+        # of its columns: the texels some pixel shows
+        bi, row_idx, col_idx, in_y, in_x = rk.background_lookup(x)
+        BH, BW = bg.shape[1], bg.shape[2]
+        key = ((bi[:, None, None] * BH + row_idx[:, :, None]) * BW
+               + col_idx[:, None, :])
+        shown = in_y[:, :, None] & in_x[:, None, :]
+        atlas += key[shown].unique().numel() * bg.shape[3]
+    elif x.bg_mode != rk.BG_NONE:
         bi, row_idx, _, in_y, in_x = rk.background_lookup(x)
         shown = in_y & in_x.any(dim=1, keepdim=True)
         image_rows = (bi[:, None] * bg.shape[1] + row_idx)[shown].unique().numel()
@@ -263,13 +287,14 @@ def main():
     runs, rows = zip(maze_phase(dev, card, np, torch),
                      miner_phase(dev, card, np, torch),
                      coinrun_phase(dev, card, np, torch),
-                     fruitbot_phase(dev, card, np, torch))
+                     fruitbot_phase(dev, card, np, torch),
+                     starpilot_phase(dev, card, np, torch))
 
-    # -- 7. profile: after every timed phase ---------------------------------
-    for name, run in zip(("maze", "miner", "coinrun", "fruitbot"), runs):
+    # -- 8. profile: after every timed phase ---------------------------------
+    for name, run in zip(("maze", "miner", "coinrun", "fruitbot", "starpilot"), runs):
         profile_slice(name, *run, np, torch)
 
-    # -- 8. result -----------------------------------------------------------
+    # -- 9. result -----------------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -373,10 +398,12 @@ def profile_slice(name, carry, step, wall_ms, np, torch):
         + "; ".join(f"{k} {v:.3f}" for k, v in by_name.most_common(5)))
 
 
-def gpu_matches_cpu(name, np, torch):
+def gpu_matches_cpu(name, np, torch, states=False):
     """A 64-env ProcgenGym3Env for 50 steps on the card and on the CPU:
-    obs, rewards, firsts and every info field (latents included) equal."""
+    obs, rewards, firsts and every info field (latents included) equal;
+    with ``states``, every leaf of the last states too."""
     from procgen_tpu_torch import ProcgenGym3Env
+    from procgen_tpu_torch.bridge import state_to_numpy
 
     envs = {d: ProcgenGym3Env(num=64, env_name=name, distribution_mode="easy",
                               rand_seed=0, device=d) for d in ("cuda", "cpu")}
@@ -393,7 +420,24 @@ def gpu_matches_cpu(name, np, torch):
         for x, y in zip(outs["cuda"], outs["cpu"]):
             if x.dtype != y.dtype or not np.array_equal(x, y):
                 raise AssertionError(f"{name}: GPU and CPU runs differ at step {t}")
+    if states:
+        leaves = {d: _leaves(state_to_numpy(env._vec.states)) for d, env in envs.items()}
+        for k, v in leaves["cuda"].items():
+            w = leaves["cpu"][k]
+            if v.dtype != w.dtype or not np.array_equal(v, w, equal_nan=v.dtype.kind == "f"):
+                raise AssertionError(f"{name}: GPU and CPU states differ in {k}")
+        return sorted(inf) + [f"{len(leaves['cuda'])} state leaves"]
     return sorted(inf)
+
+
+def _leaves(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, pre + k + "."))
+        elif v is not None:
+            out[pre + k] = v
+    return out
 
 
 def replay_on_card(name):
@@ -792,6 +836,126 @@ def fruitbot_phase(dev, card, np, torch):
         f"rewards, firsts, {', '.join(keys)}); fruitbot_easy replay exact "
         f"({checked} steps)")
     return (carry, step, wall_ms), frame_row("fruitbot", launches, err, kernel_ms,
+                                             plain_ms, b_ms, b_by)
+
+
+def libm_check(dev, np, torch):
+    """``core/libm.py`` on the card against the same code on the CPU: the
+    trig of starpilot's step, bit for bit.  Returns the inputs' count."""
+    from procgen_tpu_torch.core import libm
+
+    rng = np.random.RandomState(11)
+    n = 1 << 22
+    words = rng.randint(0, 2**32, n, dtype=np.uint64).astype(np.float32)
+    reset = (words * np.float32(2.0**-32) - np.float32(0.5)) * np.float32(np.pi / 2)
+    wide = rng.uniform(-119.9, 119.9, n // 4).astype(np.float32)
+    ys = np.concatenate([rng.uniform(-16, 16, n // 2), rng.uniform(-1, 1, n // 2)])
+    xs = np.concatenate([rng.uniform(-16, 16, n // 2), rng.uniform(-1, 1, n // 2)])
+    cases = [(libm.sincosf, (reset,)), (libm.sincosf, (wide,)),
+             (libm.atan2f, (ys.astype(np.float32), xs.astype(np.float32)))]
+    total = 0
+    for fn, args in cases:
+        cpu = fn(*(torch.from_numpy(a) for a in args))
+        gpu = fn(*(torch.from_numpy(a).to(dev) for a in args))
+        for c, g in zip(*(((t,) if torch.is_tensor(t) else t) for t in (cpu, gpu))):
+            differ = int((c.view(torch.int32) != g.cpu().view(torch.int32)).sum())
+            if differ:
+                raise AssertionError(
+                    f"libm.{fn.__name__}: card and CPU differ on {differ} inputs")
+            total += c.numel()
+    return total
+
+
+def starpilot_phase(dev, card, np, torch):
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core.constants import INT32_MAX
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.entry import make_env_fns
+    from procgen_tpu_torch.games.starpilot import Starpilot
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    def game_of(mode, centred):
+        game = Starpilot(GameOptions(distribution_mode=mode, center_agent=centred))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        return game
+
+    t0 = time.perf_counter()
+    n_trig = libm_check(dev, np, torch)
+    log("starpilot", f"libm cosf, sinf, atan2f: card and CPU bit-equal on {n_trig} "
+        f"inputs ({time.perf_counter() - t0:.1f} s)")
+
+    # kernel vs plain version: easy after 50 steps under both cameras,
+    # hard and extreme after 20, made-up scroll offsets
+    init, step, seeds = make_env_fns(NUM_ENVS, "starpilot", device=dev)
+    carry = init(seeds)
+    rng = np.random.RandomState(1)
+    for _ in range(50):
+        acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+        carry, obs, rew, done = step(carry, acts)
+    world = rk.get_plan(game_of(0, False))
+    cplan = rk.get_plan(game_of(0, True))
+    err = frame_check(rk.prep_frame(world, carry.states),
+                      "starpilot-easy states, whole-world camera", rk, torch)
+    err = max(err, frame_check(rk.prep_frame(cplan, carry.states),
+                               "starpilot-easy states, centred", rk, torch))
+    live = int(carry.states.ents.count.sum())
+    booms = int(carry.states.decor.count.sum())
+    del carry, obs
+
+    live_other = {}
+    for mode in (1, 2):
+        game = game_of(mode, False)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        for _ in range(20):
+            acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+            s, _ = lifecycle.env_step(game, s, acts)
+        err = max(err, frame_check(rk.prep_frame(rk.get_plan(game), s),
+                                   f"starpilot mode {mode} states", rk, torch))
+        live_other[mode] = int(s.ents.count.sum())
+        del s
+
+    x_syn = rk.synthetic_frame_inputs(
+        NUM_ENVS, cplan.NC, 64, cplan.on("grid", dev), cplan.on("bg", dev),
+        cplan.atlas(dev), cplan.grid_opaque, seed=7, dcap=32, bg_mode=rk.BG_SCROLL,
+    ).to(dev)
+    err = max(err, frame_check(x_syn, "made-up scrolled inputs", rk, torch))
+    log("starpilot", f"render_frame byte-equal: {NUM_ENVS} starpilot-easy states after "
+        f"50 steps ({live} live slots, {booms} explosions) under the whole-world "
+        f"camera (NC {world.NC}) and the centred one (NC {cplan.NC}), {NUM_ENVS} hard "
+        f"and {NUM_ENVS} extreme states after 20 steps ({live_other[1]} and "
+        f"{live_other[2]} live slots), {NUM_ENVS} made-up scrolled envs; "
+        f"max_abs_err {err}")
+    del x_syn
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("starpilot", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"starpilot: launches {launches} in {total} steps")
+
+    # the kernel's time against the plain version's: the slice's states
+    # under both cameras
+    x = rk.prep_frame(world, carry.states)
+    kernel_ms, plain_ms, readings = time_frame(x, rk)
+    b_ms, b_by, b_work = frame_bound(x, rk, torch)
+    xc = rk.prep_frame(cplan, carry.states)
+    kc_ms, pc_ms, creadings = time_frame(xc, rk)
+    bc_ms, bc_by, bc_work = frame_bound(xc, rk, torch)
+    log("starpilot", f"render_frame at N={NUM_ENVS} ({int(carry.states.ents.count.sum())} "
+        f"live slots, {int(carry.states.decor.count.sum())} explosions): whole-world "
+        f"camera kernel {kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, "
+        f"plain, kernel, plain: {readings}), bound {b_ms:.4f} ms ({b_by}; {b_work}); "
+        f"centred kernel {kc_ms:.4f} ms, plain {pc_ms:.4f} ms ({creadings}), bound "
+        f"{bc_ms:.4f} ms ({bc_by}; {bc_work}) on {card}")
+    del x, xc
+
+    gym_centred("starpilot", card, np, torch)
+    keys = gpu_matches_cpu("starpilot", np, torch, states=True)
+    checked = replay_on_card("starpilot_easy")
+    log("starpilot", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, "
+        f"rewards, firsts, {', '.join(keys)}); starpilot_easy replay exact "
+        f"({checked} steps)")
+    return (carry, step, wall_ms), frame_row("starpilot", launches, err, kernel_ms,
                                              plain_ms, b_ms, b_by)
 
 

@@ -37,6 +37,18 @@ def _build(cls, d: dict, device):
     })
 
 
+def _build_like(template, d, device):
+    """``d`` in the shape of ``template``: a dataclass's fields built
+    recursively (a game state may hold an entity pool, as starpilot's
+    spawners), tensors from their arrays."""
+    if not dataclasses.is_dataclass(template):
+        return _to_torch(d, device)
+    return type(template)(**{
+        f.name: _build_like(getattr(template, f.name), d[f.name], device)
+        for f in dataclasses.fields(template)
+    })
+
+
 def state_from_numpy(tree: dict, game, device="cpu") -> BasicState:
     """The port's batched state from the JAX package's state dict."""
     kw = {}
@@ -51,8 +63,7 @@ def state_from_numpy(tree: dict, game, device="cpu") -> BasicState:
                 kw[f.name] = None
             else:
                 n = np.asarray(tree["reward"]).shape[0]
-                cls = type(game.game_init_state(n, device))
-                kw[f.name] = _build(cls, v, device)
+                kw[f.name] = _build_like(game.game_init_state(n, "cpu"), v, device)
         else:
             kw[f.name] = _to_torch(v, device)
     return BasicState(**kw)

@@ -1,0 +1,237 @@
+"""glibc's ``sinf``, ``cosf`` and ``atan2f`` as elementwise torch ops.
+
+The JAX package's trig on the CPU is glibc's: XLA calls ``sinf``, ``cosf``
+and ``atan2f`` of libm, as the C++ reference does.  ``torch.sin``,
+``torch.cos`` and ``torch.atan2`` use other algorithms (SLEEF on the CPU,
+CUDA's libdevice on the card) and differ from it in the last bit on a few
+percent of the inputs, which a game step turns into a diverging
+trajectory.  Here the same algorithms run as explicit IEEE tensor
+operations, one rounding each, so the CPU and the card give the same bits
+and those are glibc 2.36's (x86_64):
+
+* ``sinf`` / ``cosf`` (and both at once, ``sincosf``):
+  ``sysdeps/ieee754/flt-32/s_sinf.c``, ``s_cosf.c`` and ``sincosf.h``
+  (ARM's optimized-routines), with internals in f64.
+  glibc's ifunc runs the ``-mfma -mavx2`` build of these files on a CPU
+  with FMA and AVX2, in which the compiler fused every ``a * b + c`` of
+  the polynomial and of the range reduction into one rounding; that build
+  is the one matched here, each such fused step emulated exactly with
+  error-free transformations (``_fma``).  Inputs with ``|x| >= 120`` need
+  ``reduce_large``, which is not ported: they give NaN.
+* ``atan2f``: fdlibm's ``e_atan2f.c`` and ``s_atanf.c`` (glibc's
+  ``sysdeps/ieee754/flt-32``), in f32, unfused.
+
+Every operation takes a tensor operand or a Python float that is exact in
+the operation's dtype; no torch op that fuses a multiply and an add
+(``addcmul``, ``lerp``, ...) is used.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import torch
+
+f32 = torch.float32
+f64 = torch.float64
+i32 = torch.int32
+i64 = torch.int64
+
+
+def _f(v: float) -> float:
+    """``v`` rounded to f32, as a Python float (exact), as a C compiler
+    rounds a float literal."""
+    return struct.unpack("<f", struct.pack("<f", v))[0]
+
+
+# -- sincosf.h / sincosf_data.c ------------------------------------------------
+
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2/pi * 2^24
+_HPI = float.fromhex("0x1.921FB54442D18p0")  # pi/2
+# cosine polynomial c0..c4 of __sincosf_table[0]; table[1] negates them
+_C = (1.0, float.fromhex("-0x1.ffffffd0c621cp-2"),
+      float.fromhex("0x1.55553e1068f19p-5"),
+      float.fromhex("-0x1.6c087e89a359dp-10"),
+      float.fromhex("0x1.99343027bf8c3p-16"))
+# sine polynomial s1..s3 (the same in both tables)
+_S1 = float.fromhex("-0x1.555545995a603p-3")
+_S2 = float.fromhex("0x1.1107605230bc4p-7")
+_S3 = float.fromhex("-0x1.994eb3774cf24p-13")
+# abstop12 bounds as |word| bounds: 0x1p-12f and 120.0f
+_ABS_TINY = 0x39800000
+_ABS_120 = 0x42F00000
+_SPLIT = 134217729.0  # 2^27 + 1, Veltkamp's splitter for f64
+
+
+def _two_sum(a, b):
+    """(s, t) with s = fl(a + b) and a + b = s + t exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a):
+    """Veltkamp's split of an f64 into two halves of 26 bits."""
+    t = a * _SPLIT
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _fma(a, b, c):
+    """fl(a * b + c) with one rounding, in f64 (each of ``b`` and ``c`` a
+    tensor or a Python float): the exact product (Dekker), its sum with
+    ``c`` split exactly, the two low parts added with rounding to odd,
+    then one rounding to nearest (Boldo and Melquiond, "Emulation of FMA
+    and correctly rounded sums", 2008)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, p)
+    u, v = _two_sum(tl, e)
+    # round to odd: an inexact u with an even last bit moves one ulp
+    # toward v (away from zero where v has u's sign)
+    bits = u.view(i64)
+    step = torch.where((v > 0) == (u > 0), 1, -1)
+    odd = torch.where((v != 0) & ((bits & 1) == 0), bits + step, bits)
+    return th + odd.view(f64)
+
+
+def sincosf(y: torch.Tensor):
+    """glibc 2.36's ``(sinf(y), cosf(y))`` of an f32 tensor, NaN where
+    ``|y| >= 120``.  One reduction serves both: ``reduce_fast`` gives the
+    quadrant n and x - n * pi/2 (one fused step), and each function is the
+    sine polynomial of n's parity or the cosine one (table 1, the negated
+    coefficients, where n & 2).  Below 0.75, where glibc skips the
+    reduction, n is 0 and the reduction returns x itself, so one path
+    serves every input below 120."""
+    y = y.to(f32)
+    absw = y.view(i32) & 0x7FFFFFFF
+    x = y.to(f64)
+    n = ((x * _HPI_INV).to(i64) + 0x800000) >> 24
+    xr = _fma(-n.to(f64), _HPI, x)
+    xs = torch.where(((n & 3) == 1) | ((n & 3) == 2), -xr, xr)
+    x2 = xr * xr
+    # sinf_poly, n even: the sine polynomial
+    x3 = xs * x2
+    s1 = _fma(x2, _S3, _S2)
+    x7 = x3 * x2
+    sin_r = _fma(x7, s1, _fma(x3, _S1, xs))
+    # n odd: the cosine polynomial of table 0, negated for table 1 (round
+    # to nearest is symmetric, so every fused step negates exactly)
+    x4 = x2 * x2
+    c2 = _fma(x2, _C[4], _C[3])
+    c1 = _fma(x2, _C[1], _C[0])
+    x6 = x4 * x2
+    cos_r = _fma(x6, c2, _fma(x4, _C[2], c1))
+    cos_r = torch.where((n & 2) != 0, -cos_r, cos_r)
+    odd = (n & 1) != 0
+    sin = torch.where(odd, cos_r, sin_r).to(f32)
+    cos = torch.where(odd, sin_r, cos_r).to(f32)
+    sin = torch.where(absw < _ABS_TINY, y, sin)
+    cos = torch.where(absw < _ABS_TINY, 1.0, cos)
+    big = absw >= _ABS_120
+    return torch.where(big, torch.nan, sin), torch.where(big, torch.nan, cos)
+
+
+def sinf(x: torch.Tensor) -> torch.Tensor:
+    """glibc 2.36's ``sinf`` of an f32 tensor (NaN where |x| >= 120)."""
+    return sincosf(x)[0]
+
+
+def cosf(x: torch.Tensor) -> torch.Tensor:
+    """glibc 2.36's ``cosf`` of an f32 tensor (NaN where |x| >= 120)."""
+    return sincosf(x)[1]
+
+
+# -- s_atanf.c / e_atan2f.c (fdlibm) -------------------------------------------
+
+# the float literals of s_atanf.c and e_atan2f.c (fdlibm's comments give
+# aT[0]'s word as 0x3eaaaaaa; the literal rounds to 0x3eaaaaab)
+_ATANHI = tuple(map(_f, (4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01,
+                         1.5707962513e+00)))
+_ATANLO = tuple(map(_f, (5.0121582440e-09, 3.7748947079e-08, 3.4473217170e-08,
+                         7.5497894159e-08)))
+_AT = tuple(map(_f, (
+    3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01, -1.1111110449e-01,
+    9.0908870101e-02, -7.6918758452e-02, 6.6610731184e-02, -5.8335702866e-02,
+    4.9768779427e-02, -3.6531571299e-02, 1.6285819933e-02,
+)))
+_PI_O_4 = _f(7.8539818525e-01)
+_PI_O_2 = _f(1.5707963705e+00)
+_PI = _f(3.1415927410e+00)
+_PI_LO = _f(-8.7422776573e-08)
+
+
+def _full(like, v):
+    return torch.full_like(like, v)
+
+
+def _atanf(x: torch.Tensor) -> torch.Tensor:
+    """fdlibm's ``atanf`` of an f32 tensor."""
+    hx = x.view(i32)
+    ix = hx & 0x7FFFFFFF
+    ax = torch.abs(x)
+    one = _full(x, 1.0)
+    # argument reduction: id -1 (none), 0, 1, 2, 3
+    r0 = (2.0 * ax - 1.0) / (2.0 + ax)
+    r1 = (ax - 1.0) / (ax + 1.0)
+    r2 = (ax - 1.5) / (one + 1.5 * ax)
+    r3 = _full(x, -1.0) / ax
+    idx = torch.where(ix < 0x3EE00000, -1, torch.where(
+        ix < 0x3F300000, 0, torch.where(
+            ix < 0x3F980000, 1, torch.where(ix < 0x401C0000, 2, 3))))
+    xr = torch.where(idx == -1, x, torch.where(idx == 0, r0, torch.where(
+        idx == 1, r1, torch.where(idx == 2, r2, r3))))
+    z = xr * xr
+    w = z * z
+    a = _AT
+    s1 = z * (a[0] + w * (a[2] + w * (a[4] + w * (a[6] + w * (a[8] + w * a[10])))))
+    s2 = w * (a[1] + w * (a[3] + w * (a[5] + w * (a[7] + w * a[9]))))
+    near = xr - xr * (s1 + s2)
+    k = idx.clamp_min(0).long()
+    hi = torch.tensor(_ATANHI, dtype=f32, device=x.device)[k]
+    lo = torch.tensor(_ATANLO, dtype=f32, device=x.device)[k]
+    far = hi - ((xr * (s1 + s2) - lo) - xr)
+    far = torch.where(hx < 0, -far, far)
+    out = torch.where(idx == -1, near, far)
+    out = torch.where(ix < 0x31000000, x, out)  # |x| < 2^-29
+    # |x| >= 2^25: +-(atanhi[3] + atanlo[3]); NaN: x + x
+    inf_v = _full(x, _ATANHI[3]) + _ATANLO[3]
+    big = torch.where(hx > 0, inf_v, -inf_v)
+    big = torch.where(ix > 0x7F800000, x + x, big)
+    return torch.where(ix >= 0x4C000000, big, out)
+
+
+def atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """glibc 2.36's (fdlibm's) ``atan2f`` of f32 tensors, broadcast."""
+    y, x = torch.broadcast_tensors(y.to(f32), x.to(f32))
+    hx, hy = x.view(i32), y.view(i32)
+    ix, iy = hx & 0x7FFFFFFF, hy & 0x7FFFFFFF
+    m = ((hy >> 31) & 1) | ((hx >> 30) & 2)  # 2 * sign(x) + sign(y)
+    pi = _full(x, _PI)
+    pi_o_2 = _full(x, _PI_O_2)
+    pi_o_4 = _full(x, _PI_O_4)
+
+    # the general case: z = atan(|y / x|), then the quadrant
+    k = (iy - ix) >> 23
+    z = _atanf(torch.abs(y / x))
+    z = torch.where((hx < 0) & (k < -60), 0.0, z)
+    z = torch.where(k > 60, pi_o_2 + 0.5 * _PI_LO, z)
+    zl = z - _PI_LO
+    out = torch.where(m == 0, z, torch.where(
+        m == 1, -z, torch.where(m == 2, pi - zl, zl - pi)))
+
+    # the special cases, innermost last in the C's order of tests
+    out = torch.where(iy == 0x7F800000, torch.where(hy < 0, -pi_o_2, pi_o_2), out)
+    x_inf = torch.where(iy == 0x7F800000, torch.where(
+        m == 0, pi_o_4, torch.where(m == 1, -pi_o_4, torch.where(
+            m == 2, 3.0 * pi_o_4, -3.0 * pi_o_4))),
+        torch.where(m == 0, 0.0, torch.where(
+            m == 1, -0.0, torch.where(m == 2, pi, -pi))))
+    out = torch.where(ix == 0x7F800000, x_inf, out)
+    out = torch.where(ix == 0, torch.where(hy < 0, -pi_o_2, pi_o_2), out)
+    y_zero = torch.where(m <= 1, y, torch.where(m == 2, pi, -pi))
+    out = torch.where(iy == 0, y_zero, out)
+    out = torch.where(hx == 0x3F800000, _atanf(y), out)
+    return torch.where((ix > 0x7F800000) | (iy > 0x7F800000), x + y, out)

@@ -2,15 +2,20 @@
 //
 // Replaces the Pallas TPU kernel procgen_tpu/render/pallas_kernel.py
 // (_render_env inside the pl.pallas_call at :1136) on its non-static path
-// with a fixed background image, which miner, coinrun and fruitbot take,
-// under the static camera or the agent-centred one.  Per pixel, in the
-// QPainter pipeline's order:
-//   K1d  the env's background image (else 0), in one of two modes per
-//        launch: the standard crop with the random x offset (:656-666), or
+// with a fixed background image, which miner, coinrun, fruitbot and
+// starpilot take, under the static camera or the agent-centred one.  Per
+// pixel, in the QPainter pipeline's order:
+//   K1d  the env's background image (else 0), in one of three modes per
+//        launch: the standard crop with the random x offset (:656-666);
 //        fruitbot's vertical tiling (:646-655): row frac((sy - mr_y) /
 //        tile_h) of the image, column (sx - mr_x) / mr_w of it, inside the
-//        world rect.  The mode is a template parameter, so each mode's
-//        kernel carries no test of the others;
+//        world rect; or starpilot's time-scrolled tiles (:632-645): 18
+//        square tiles of side 3 * 64 from y = -64, shifted by the scroll
+//        offset bg_xoff, tx = sx - bg_xoff, column frac(tx / side) of the
+//        image where 0 <= tx < 18 * side, row (sy + 64) / side of it.  The
+//        division by the constant side is a multiply by its f32 reciprocal,
+//        as XLA compiles the JAX package's.  The mode is a template
+//        parameter, so each mode's kernel carries no test of the others;
 //   K1c  the z=-1 canvases composited over it;
 //   K1e  the grid tiles: nearest texel of the camera's cell window, alpha
 //        blended with alpha = texel / 255 as a true division (:976-1011);
@@ -75,7 +80,10 @@ constexpr int SF_UNIT = 0, SF_VIS = 1, SF_XOFF = 2, SF_YOFF = 3, SF_MRX = 4,
               SF_MRY = 5, SF_MRW = 6, SF_MRH = 7, SF_BGRX = 8, SF_BGRW = 9,
               SF_TILEH = 10, SF_TOPY = 11, SF_LOWX = 12, SF_N = 13;
 // K1d's background modes (render_kernel.py BG_*)
-constexpr int BG_NONE = 0, BG_CROP = 1, BG_TILED = 2;
+constexpr int BG_NONE = 0, BG_CROP = 1, BG_TILED = 2, BG_SCROLL = 3;
+// the scrolled tiles' side and its f32 reciprocal (starpilot, bg_k = 3)
+constexpr float SCROLL_SIDE = 3.0f * RES;
+constexpr float SCROLL_INV_SIDE = 1.0f / SCROLL_SIDE;
 constexpr int SI_BGROW = 0, SI_ENT_COUNT = 1, SI_DEC_COUNT = 2, SI_N = 3;
 
 struct Geometry {
@@ -143,12 +151,22 @@ render_frame_kernel(const float* __restrict__ sf_g,
   const bool in_c = (cxx >= 0.f) && (cxx < (float)GS);
   const float u_frac = wxs - floorf(wxs);
 
-  // the image's horizontal extent: the crop's rect, or the world rect
+  // the image column: in the crop's rect or the world rect, or on the
+  // scrolled tiles
   constexpr bool tiled = BG == BG_TILED;
-  const float bgr_x = sc[tiled ? SF_MRX : SF_BGRX];
-  const float bgr_w = sc[tiled ? SF_MRW : SF_BGRW];
-  const int bg_col = clampi((int)((sx - bgr_x) / bgr_w * (float)g.BW), 0, g.BW - 1);
-  const bool bg_in_x = (sx >= bgr_x) && (sx < bgr_x + bgr_w);
+  int bg_col;
+  bool bg_in_x;
+  if constexpr (BG == BG_SCROLL) {
+    const float tx = sx - sc[SF_BGRX];
+    const float fx = tx * SCROLL_INV_SIDE;
+    bg_col = clampi((int)((fx - floorf(fx)) * (float)g.BW), 0, g.BW - 1);
+    bg_in_x = (tx >= 0.f) && (tx < 18.0f * SCROLL_SIDE);
+  } else {
+    const float bgr_x = sc[tiled ? SF_MRX : SF_BGRX];
+    const float bgr_w = sc[tiled ? SF_MRW : SF_BGRW];
+    bg_col = clampi((int)((sx - bgr_x) / bgr_w * (float)g.BW), 0, g.BW - 1);
+    bg_in_x = (sx >= bgr_x) && (sx < bgr_x + bgr_w);
+  }
   const uint8_t* bg_img =
       bg_atlas + (int64_t)clampi(sci[SI_BGROW], 0, g.nb - 1) * g.BH * g.BW * 3;
 
@@ -156,19 +174,22 @@ render_frame_kernel(const float* __restrict__ sf_g,
     const float sy = (float)row + 0.5f;
     const float wys = vis - (sy - y_off) / unit;
 
-    // K1d: the background, cropped or tiled
+    // K1d: the background, cropped, tiled or scrolled
     float obs[3] = {0.f, 0.f, 0.f};
     if constexpr (BG != BG_NONE) {
       const float mr_y = sc[SF_MRY], mr_h = sc[SF_MRH];
       float fy;
-      if constexpr (tiled) {
+      if constexpr (BG == BG_SCROLL) {
+        fy = (sy + (float)RES) * SCROLL_INV_SIDE;
+      } else if constexpr (tiled) {
         fy = (sy - mr_y) / sc[SF_TILEH];
         fy = fy - floorf(fy);
       } else {
         fy = (sy - mr_y) / mr_h;
       }
       const int bg_row = clampi((int)(fy * (float)g.BH), 0, g.BH - 1);
-      const bool in_y = (sy >= mr_y) && (sy < mr_y + mr_h);
+      const bool in_y =
+          BG == BG_SCROLL || ((sy >= mr_y) && (sy < mr_y + mr_h));
       if (in_y && bg_in_x) {
         const uint8_t* t = bg_img + ((int64_t)bg_row * g.BW + bg_col) * 3;
 #pragma unroll
@@ -230,14 +251,16 @@ render_frame_kernel(const float* __restrict__ sf_g,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes by procgen_tpu_torch/kernels.py).
-// sf: f32 [n, 13] (camera, world rect, crop rect, tile height, window);
+// sf: f32 [n, 13] (camera, world rect, crop rect or scroll offset, tile
+// height, window);
 // si: int32 [n, 3] (background row, entity and decor live counts); gtab:
 // int32 [n, NC, NC]; cell5: f32 [n, 5, NC, NC]; ent_f / dec_f: f32 [n,
 // cap|dcap, 8]; ent_i / dec_i: int32 [n, cap|dcap, 10]; grid_atlas: uint8
 // [n_grid_rows, sA, sA, 4]; bg_atlas: uint8 [nb, BH, BW, 3]; ent_atlas:
 // uint8 [n_ent_rows, S, S, 4]; out: uint8 [n, 64, 64, 3].  zm1/z0/z1 and
 // dzm1/dz0/dz1: each pool's canvas index of z = -1, 0, 1 among its nz / nzd
-// canvases, or -1 for none.  bg_mode: BG_NONE, BG_CROP or BG_TILED.
+// canvases, or -1 for none.  bg_mode: BG_NONE, BG_CROP, BG_TILED or
+// BG_SCROLL.
 // Launches on ``stream`` and returns cudaGetLastError() (0 on success).
 extern "C" int render_frame(const float* sf, const int32_t* si,
                             const int32_t* gtab, const float* cell5,
@@ -254,7 +277,7 @@ extern "C" int render_frame(const float* sf, const int32_t* si,
   const int zs[3] = {zm1, z0, z1}, dzs[3] = {dzm1, dz0, dz1};
   bool ok = nz >= 1 && nzd >= 0 && nz + nzd <= NCANV && cap >= 0 &&
             dcap >= 0 && NC >= 1 && sA >= 1 && n_grid_rows >= 1 && nb >= 1 &&
-            bg_mode >= BG_NONE && bg_mode <= BG_TILED &&
+            bg_mode >= BG_NONE && bg_mode <= BG_SCROLL &&
             BH >= 1 && BW >= 1 && S >= 1 && n_ent_rows >= 1;
   for (int k = 0; k < 3; ++k)
     ok = ok && zs[k] >= -1 && zs[k] < nz && dzs[k] >= -1 && dzs[k] < nzd;
@@ -264,9 +287,10 @@ extern "C" int render_frame(const float* sf, const int32_t* si,
   if (!ok || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const Geometry g{cap, dcap, nz, nzd, {zm1, z0, z1}, {dzm1, dz0, dz1},
                    NC, sA, n_grid_rows, opaque, nb, BH, BW, S, n_ent_rows};
-  auto kernel = bg_mode == BG_TILED  ? render_frame_kernel<BG_TILED>
-                : bg_mode == BG_CROP ? render_frame_kernel<BG_CROP>
-                                     : render_frame_kernel<BG_NONE>;
+  auto kernel = bg_mode == BG_SCROLL  ? render_frame_kernel<BG_SCROLL>
+                : bg_mode == BG_TILED ? render_frame_kernel<BG_TILED>
+                : bg_mode == BG_CROP  ? render_frame_kernel<BG_CROP>
+                                      : render_frame_kernel<BG_NONE>;
   kernel<<<(unsigned)n, THREADS, smem, stream>>>(
       sf, si, gtab, cell5, ent_f, ent_i, dec_f, dec_i, grid_atlas, bg_atlas,
       ent_atlas, out, g);

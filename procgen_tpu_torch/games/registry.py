@@ -2,7 +2,7 @@
 
 Games self-register via ``@register(name)``; ``make_game(name, options)``
 replaces ``globalGameRegistry->at(name)()``.  The port carries maze,
-miner, coinrun and fruitbot so far; the other games are queued in ROADMAP.md.
+miner, coinrun, fruitbot and starpilot so far; the other games are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import importlib
 _REGISTRY: dict[str, type] = {}
 
 # modules that register games on import (grown as games are ported)
-_GAME_MODULES = ["maze", "miner", "coinrun", "fruitbot"]
+_GAME_MODULES = ["maze", "miner", "coinrun", "fruitbot", "starpilot"]
 
 
 def register(name: str):

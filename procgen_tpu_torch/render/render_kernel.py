@@ -9,11 +9,12 @@ The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
   it reproduces the Pallas kernel's K1a (start from the cached frame), K1b
   (per-slot sampling into premultiplied bf16 canvases, one per z level)
   and K1c (composite z=0 then z=1, round, u8).
-* the whole-frame path of a game that is not static, which miner, coinrun
-  and fruitbot take, under the static camera or the agent-centred one.
-  ``render_frame`` launches ``csrc/render_frame.cu``; it adds the Pallas
-  kernel's K1d (the background: the standard crop, or fruitbot's vertical
-  tiling), the z=-1 composite, K1e (grid tiles from the camera's cell
+* the whole-frame path of a game that is not static, which miner, coinrun,
+  fruitbot and starpilot take, under the static camera or the
+  agent-centred one.  ``render_frame`` launches ``csrc/render_frame.cu``;
+  it adds the Pallas kernel's K1d (the background: the standard crop,
+  fruitbot's vertical tiling or starpilot's time-scrolled tiles), the z=-1
+  composite, K1e (grid tiles from the camera's cell
   window), K1f (colored cells) and the decor pool, painted into its own
   canvases and composited after the entity pool's at each z.  Each pool is
   walked to its live count; the TPU kernel's grouped pass (K2) paints the
@@ -40,7 +41,8 @@ import torch
 from ..core.constants import SPACE
 from .atlas import ROT_OVERHANG, get_atlases
 from .renderer import (
-    bg_width, camera, fdiv, grid_rows, grid_window, post, tile_height,
+    bg_width, camera, fdiv, grid_rows, grid_window, post, scroll_lookup,
+    tile_height,
 )
 
 f32 = torch.float32
@@ -64,8 +66,9 @@ SF_N = 13
 SI_BGROW, SI_ENT_COUNT, SI_DEC_COUNT = range(3)
 SI_N = 3
 # K1d's background modes, one per launch: none, the standard crop with the
-# random x offset (SF_BGRX, SF_BGRW), the vertical tiling (SF_TILEH)
-BG_NONE, BG_CROP, BG_TILED = range(3)
+# random x offset (SF_BGRX, SF_BGRW), the vertical tiling (SF_TILEH), the
+# time-scrolled tiles (SF_BGRX, the scroll offset)
+BG_NONE, BG_CROP, BG_TILED, BG_SCROLL = range(4)
 
 # Launches of each CUDA kernel since import (or since a caller reset
 # them); each wrapper adds one to its own count per launch and nothing
@@ -114,6 +117,7 @@ class RenderPlan:
             self.arrays["grid"] = grid_atlas.rows  # [n_rows, sA, sA, 4] u8
             use_bg = bg_atlas is not None and game.options.use_backgrounds
             self.bg_mode = (BG_NONE if not use_bg else
+                            BG_SCROLL if game.PALLAS_BG == "scroll" else
                             BG_TILED if game.bg_tile_ratio < 0 else BG_CROP)
             if bg_atlas is not None:
                 self.arrays["bg"] = bg_atlas.pixels  # [nb, BH, BW, 3] u8
@@ -160,11 +164,12 @@ def supports(game, res: int = RES) -> bool:
     (procgen_tpu/render/pallas_kernel.py:204-215) restricted to the ported
     paths, textured, and either the static prefix with the entity pool
     alone at z in (0, 1), or the whole frame with a fixed background image,
-    cropped (``bg_tile_ratio >= 0``) or tiled vertically (``bg_tile_ratio <
-    0``, fruitbot), z in (-1, 0, 1) in both pools, under the static camera
-    or the agent-centred one.  Scrolled and procedural backgrounds,
-    monochrome sprites, the decor pool on the static path, and memory
-    mode's rules (ROADMAP) are not ported."""
+    cropped (``bg_tile_ratio >= 0``), tiled vertically (``bg_tile_ratio <
+    0``, fruitbot) or scrolled with time (``PALLAS_BG == "scroll"`` with
+    starpilot's ``paint_background``), z in (-1, 0, 1) in both pools,
+    under the static camera or the agent-centred one.  Procedural
+    backgrounds, monochrome sprites, the decor pool on the static path, and
+    memory mode's rules (ROADMAP) are not ported."""
     from ..core.constants import MEMORY_MODE
     from ..core.game import BasicAbstractGame
 
@@ -173,7 +178,11 @@ def supports(game, res: int = RES) -> bool:
     if game.options.distribution_mode == MEMORY_MODE:
         return False
     if type(game).paint_background is not BasicAbstractGame.paint_background:
-        return False
+        from ..games.starpilot import Starpilot
+
+        if (game.PALLAS_BG != "scroll"
+                or type(game).paint_background is not Starpilot.paint_background):
+            return False
     if type(game).grid_cell_colors is not BasicAbstractGame.grid_cell_colors:
         return False
     z = tuple(game.ENT_Z_LEVELS)
@@ -182,7 +191,7 @@ def supports(game, res: int = RES) -> bool:
         return not dz and z in ((0,), (1,), (0, 1))
     return (
         not getattr(game, "DYNAMIC_VISIBILITY", False)
-        and game.PALLAS_BG == "standard"
+        and game.PALLAS_BG in ("standard", "scroll")
         and not game.uses_procgen_background
         and all(len(set(lv)) == len(lv) and set(lv) <= {-1, 0, 1}
                 for lv in (z, dz))
@@ -314,8 +323,8 @@ class FrameInputs:
     ``ent_atlas`` [2*n1e, S, S, 4]; ``z_slots`` / ``dz_slots``, each
     pool's canvas index of z = -1, 0, 1 (-1 for none) among its ``nz`` /
     ``nzd`` canvases; ``grid_opaque``, the first grid row that covers
-    nothing; ``bg_mode``, K1d's mode (``BG_NONE``, ``BG_CROP`` or
-    ``BG_TILED``)."""
+    nothing; ``bg_mode``, K1d's mode (``BG_NONE``, ``BG_CROP``,
+    ``BG_TILED`` or ``BG_SCROLL``)."""
 
     sf: torch.Tensor
     si: torch.Tensor
@@ -372,6 +381,9 @@ def prep_frame(plan: RenderPlan, s) -> FrameInputs:
         sf[:, SF_MRW], sf[:, SF_MRH] = mr_w, mr_h
         if plan.bg_mode == BG_TILED:
             sf[:, SF_TILEH] = tile_height(mr_w, mr_h, -game.bg_tile_ratio)
+        elif plan.bg_mode == BG_SCROLL:
+            # the scroll offset (:287-291), as XLA computes it
+            sf[:, SF_BGRX] = game.background_offset(s, plan.res)
         else:
             bg_ar = torch.as_tensor(plan.bg_aspects, device=dev)[bi.long()]
             world_ar = w / h
@@ -580,18 +592,25 @@ def grid_lookup(x: FrameInputs):
 
 
 def background_lookup(x: FrameInputs):
-    """K1d's per-pixel indices, tiled (pallas_kernel.py:646-655) or cropped
-    (:656-666).  Returns ``bi`` [N], the clamped background image;
-    ``row_idx`` and ``in_y`` [N, 64], the image row of each pixel row and
-    whether the row lies in the world rect; ``col_idx`` and ``in_x`` [N,
-    64], the same for the pixel columns."""
+    """K1d's per-pixel indices, scrolled (pallas_kernel.py:632-645), tiled
+    (:646-655) or cropped (:656-666).  Returns ``bi`` [N], the clamped
+    background image; ``row_idx`` and ``in_y`` [N, 64], the image row of
+    each pixel row and whether the row lies in the world rect (every row,
+    scrolled); ``col_idx`` and ``in_x`` [N, 64], the same for the pixel
+    columns."""
     sf = x.sf
+    n = sf.shape[0]
     BH, BW = x.bg_atlas.shape[1], x.bg_atlas.shape[2]
     pix = (torch.arange(RES, dtype=f32, device=sf.device) + 0.5)[None, :]
+    bi = x.si[:, SI_BGROW].long().clamp(0, x.bg_atlas.shape[0] - 1)
 
     def col(k):
         return sf[:, k:k + 1]  # [N, 1]
 
+    if x.bg_mode == BG_SCROLL:
+        row_idx, col_idx, in_x = scroll_lookup(col(SF_BGRX), pix, pix, RES, BH, BW)
+        in_y = torch.ones((n, RES), dtype=torch.bool, device=sf.device)
+        return bi, row_idx.expand(n, RES), col_idx, in_y, in_x
     mr_y, mr_h = col(SF_MRY), col(SF_MRH)
     if x.bg_mode == BG_TILED:
         fy = (pix - mr_y) / col(SF_TILEH)
@@ -603,7 +622,6 @@ def background_lookup(x: FrameInputs):
     col_idx = ((pix - bgr_x) / bgr_w * BW).to(i32).clamp(0, BW - 1)
     in_y = (pix >= mr_y) & (pix < mr_y + mr_h)
     in_x = (pix >= bgr_x) & (pix < bgr_x + bgr_w)
-    bi = x.si[:, SI_BGROW].long().clamp(0, x.bg_atlas.shape[0] - 1)
     return bi, row_idx, col_idx, in_y, in_x
 
 
@@ -672,7 +690,7 @@ def render_frame(x: FrameInputs):
                 and all(-1 <= z < x.nzd for z in x.dz_slots))
     if (not 1 <= x.nz or x.nzd < 0 or x.nz + x.nzd > MAX_CANVASES
             or smem > 48 * 1024 or not slots_ok
-            or x.bg_mode not in (BG_NONE, BG_CROP, BG_TILED)):
+            or x.bg_mode not in (BG_NONE, BG_CROP, BG_TILED, BG_SCROLL)):
         raise ValueError(
             f"render_frame: nz={x.nz}, nzd={x.nzd}, z_slots={x.z_slots}, "
             f"dz_slots={x.dz_slots}, cap={cap}, dcap={dcap} or "
@@ -756,7 +774,9 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
     ``synthetic_slots``.  With ``bg_mode=BG_TILED``, tiled backgrounds:
     world rects up to six frames tall, starting above, inside or below the
     frame and partly off it sideways, with tile heights from 2 to 70 px
-    that need not divide the rect.  Built with numpy from ``seed``."""
+    that need not divide the rect.  With ``bg_mode=BG_SCROLL``, scroll
+    offsets of the clocks 0..1000 and offsets that leave part of the frame
+    or all of it off the 18 tiles.  Built with numpy from ``seed``."""
     rng = np.random.RandomState(seed)
     sf = np.zeros((n, SF_N), np.float32)
     vis = rng.choice([NC, NC + 0.5, NC * 1.3], n).astype(np.float32)
@@ -798,6 +818,15 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
         sf[:, SF_MRY] = rng.uniform(-360, 50, n)
         sf[:, SF_TILEH] = np.where(rng.rand(n) < 0.5, rng.uniform(2, 70, n),
                                    sf[:, SF_MRH] / rng.randint(1, 8, n))
+    if bg_mode == BG_SCROLL:
+        # the clocks' offsets, and offsets that put the frame's left edge
+        # before the tiles, its right edge past their end, or all of it
+        # past their end
+        kind = rng.randint(0, 4, n)
+        sf[:, SF_BGRX] = np.choose(kind, [
+            -np.float32(0.8) * rng.randint(0, 1001, n), rng.uniform(0, 64, n),
+            rng.uniform(-3456, -3392, n), rng.uniform(-4000, -3456, n),
+        ]).astype(np.float32)
     return FrameInputs(
         sf=torch.as_tensor(sf), si=torch.as_tensor(si),
         gtab=torch.as_tensor(gtab), cell5=torch.as_tensor(cell5),

@@ -11,7 +11,8 @@ the JAX renderer is kept.
 This is the path of the per-level static prefix (``prefix_only``), which
 the JAX package also computes outside its Pallas kernel, the plain oracle
 of the per-step suffix (``base``), and, with neither, the plain oracle of
-the whole frame of a game that is not static (miner, coinrun, fruitbot).
+the whole frame of a game that is not static (miner, coinrun, fruitbot,
+starpilot).
 """
 
 from __future__ import annotations
@@ -90,14 +91,18 @@ def render_obs(game, s, res: int = 64, base=None, prefix_only=False):
         obs = base.to(i32)
     else:
         obs = torch.zeros((n, res, res, 3), dtype=i32, device=dev)
-        if game.options.use_backgrounds and bg_atlas is not None:
-            if type(game).paint_background is not _base_paint_background():
-                raise NotImplementedError("custom backgrounds not ported")
+        use_bg = game.options.use_backgrounds and bg_atlas is not None
+        if use_bg and type(game).paint_background is _base_paint_background():
             pix, aspects = bg_atlas.tensors(dev)
             bi = s.background_index.long().clamp(0, pix.shape[0] - 1)
             obs = _paint_background(
                 game, s, obs, sx, sy, res, unit, vis, pix, bi, aspects[bi]
             )
+        elif use_bg and game.PALLAS_BG == "scroll":
+            # the game's own background pass: starpilot's scrolled tiles
+            obs = game.paint_background(s, res, sx, sy, bg_atlas)
+        elif use_bg:
+            raise NotImplementedError("custom backgrounds not ported")
 
     draw_mask = game.should_draw_entity_mask(s)
 
@@ -272,6 +277,25 @@ def tile_height(mr_w, mr_h, ratio):
     num_tiles = torch.clamp_min((mr_h / (mr_w * ratio)).to(i32), 1)
     return mr_h / num_tiles.to(f32)
 
+
+def scroll_lookup(x_off, sx, sy, res: int, BH: int, BW: int):
+    """The time-scrolled background's per-pixel indices (starpilot's
+    paint_background, procgen_tpu/games/starpilot.py:138-170): 18 square
+    tiles of side ``3 * res`` side by side, the top edge at ``-res``,
+    shifted right by ``x_off`` ([N, 1] f32, the game's
+    ``background_offset``); ``sx`` / ``sy`` are the pixel centres
+    ([1, res]).  Returns the image row of each pixel row ([1, res]), the
+    image column of each pixel column and whether it lies on the tiles
+    ([N, res] each).  The JAX package divides by the side, a constant; XLA
+    computes that as a multiply by the side's f32 reciprocal, and so does
+    this."""
+    inv_side = float(torch.tensor(1 / (3 * res), dtype=f32))
+    tx = sx - x_off
+    fx = tx * inv_side
+    col_idx = ((fx - torch.floor(fx)) * BW).to(i32).clamp(0, BW - 1)
+    in_x = (tx >= 0) & (tx < 18.0 * (3 * res))
+    row_idx = ((sy + float(res)) * inv_side * BH).to(i32).clamp(0, BH - 1)
+    return row_idx, col_idx, in_x
 
 def _sprite_canvases(game, s, pool, mask, atlas, res, unit, vis, x_off,
                      y_off, sx, sy, z_levels):

@@ -22,6 +22,7 @@ from procgen_tpu_torch.games.coinrun import Coinrun
 from procgen_tpu_torch.games.fruitbot import Fruitbot
 from procgen_tpu_torch.games.maze import Maze
 from procgen_tpu_torch.games.miner import Miner
+from procgen_tpu_torch.games.starpilot import Starpilot
 from procgen_tpu_torch.render import render_kernel as rk
 
 
@@ -344,7 +345,7 @@ def test_tiled_background_repeats_by_tile_height():
 
 
 def test_frame_bad_bg_mode_raises():
-    x = dataclasses.replace(_synthetic_tiled(2, 2), bg_mode=3)
+    x = dataclasses.replace(_synthetic_tiled(2, 2), bg_mode=rk.BG_SCROLL + 1)
     with pytest.raises(ValueError, match="out of range"):
         rk.render_frame(x)
 
@@ -369,6 +370,88 @@ def test_cuda_frame_kernel_tiled_matches_plain_version():
             inputs.append(rk.prep_frame(rk.get_plan(_fruitbot(mode, centred)), s))
     for x in inputs:
         assert x.bg_mode == rk.BG_TILED
+        before = rk.LAUNCHES["render_frame"]
+        got = rk.render_frame(x)
+        want = rk.render_frame_reference(x)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["render_frame"] == before + 1
+        assert torch.equal(got, want)
+
+
+def _starpilot(mode=0, centred=False):
+    game = Starpilot(GameOptions(distribution_mode=mode, center_agent=centred))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    return game
+
+
+def _synthetic_scroll(n, cap, seed=0, device="cpu"):
+    plan = rk.get_plan(_starpilot())
+    return rk.synthetic_frame_inputs(
+        n, plan.NC, cap, plan.on("grid", device), plan.on("bg", device),
+        plan.atlas(device), plan.grid_opaque, seed=seed, bg_mode=rk.BG_SCROLL,
+    ).to(device)
+
+
+def test_synthetic_frame_covers_scrolling():
+    """The made-up scrolled batch: offsets that leave the frame on the
+    tiles, part of it past their right end, and all of it past it; the
+    scrolled background differs from the crop of the same scalars."""
+    x = _synthetic_scroll(64, 4)
+    assert x.bg_mode == rk.BG_SCROLL
+    _, _, _, _, in_x = rk.background_lookup(x)
+    on = in_x.sum(dim=1)
+    assert (on == 64).any() and ((on > 0) & (on < 64)).any() and (on == 0).any()
+    crop = dataclasses.replace(x, bg_mode=rk.BG_CROP)
+    assert not torch.equal(rk.render_frame_reference(x), rk.render_frame_reference(crop))
+
+
+def test_scrolled_background_follows_the_offset():
+    """One env, nothing over the background: pixel (r, c) shows image row
+    int((r + 0.5 + 64) / 192 * BH) and column int(frac((c + 0.5 - off) /
+    192) * BW) of the 18 tiles, black past their end; an offset of one
+    tile side shows the same frame."""
+    x = _synthetic_scroll(1, 1, seed=5)
+    x.ent_i[..., rk.EI_LIVE] = 0
+    x.gtab.fill_(x.grid_opaque)
+    x.cell5[:, 3] = 0
+    img = x.bg_atlas[int(x.si[0, rk.SI_BGROW].clamp(0, x.bg_atlas.shape[0] - 1))]
+    BH, BW = img.shape[0], img.shape[1]
+    frames = {}
+    for off in (-40.0, -232.0, -3440.0):
+        x.sf[0, rk.SF_BGRX] = off
+        out = rk.render_frame_reference(x)[0]
+        tx = np.arange(64) + 0.5 - off
+        cols = (((tx / 192.0) % 1.0) * BW).astype(np.int64)
+        for r in (0, 31, 63):
+            row = int((r + 0.5 + 64) / 192 * BH)
+            on = tx < 18 * 192
+            assert torch.equal(out[r][torch.as_tensor(on)], img[row, cols[on]])
+            assert not out[r][torch.as_tensor(~on)].any()
+        frames[off] = out
+    assert torch.equal(frames[-40.0], frames[-232.0])
+    assert not frames[-3440.0][:, 48:].any() and frames[-3440.0][:, :16].any()
+
+
+@pytest.mark.cuda
+def test_cuda_frame_kernel_scroll_matches_plain_version():
+    """The time-scrolled background: made-up offsets, and starpilot easy,
+    hard and extreme states (bullets on the rotation bank, explosions in
+    the decor pool) under both cameras."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    inputs = [_synthetic_scroll(256, 24, seed=6, device=dev)]
+    seeds = torch.arange(64, dtype=torch.int64, device=dev) * 7919 + 9
+    for mode in (0, 1, 2):
+        game = _starpilot(mode)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        acts = np.random.RandomState(mode).choice([9, 10, 1, 7], (40, 64))
+        for a in acts:
+            s, _ = lifecycle.env_step(game, s, torch.as_tensor(a, device=dev))
+        for centred in (False, True):
+            inputs.append(rk.prep_frame(rk.get_plan(_starpilot(mode, centred)), s))
+    for x in inputs:
+        assert x.bg_mode == rk.BG_SCROLL
         before = rk.LAUNCHES["render_frame"]
         got = rk.render_frame(x)
         want = rk.render_frame_reference(x)

@@ -1,0 +1,194 @@
+"""The port's ``core/libm.py`` against the JAX package's trig.
+
+The JAX package's ``jnp.cos``, ``jnp.sin`` and ``jnp.arctan2`` on the CPU
+are glibc's ``cosf``, ``sinf`` and ``atan2f`` (XLA calls them), which is
+also what the C++ reference calls.  ``libm.cosf``, ``libm.sinf`` and
+``libm.atan2f`` must equal both, bit for bit:
+
+* on 1,048,576 of starpilot's reset angles, made from a numpy seed the
+  way ``procgen_tpu/games/starpilot.py:318-334`` makes them,
+  ``(rand01 - 0.5) * pi/2``, and on the angle of ``rand01 = 1.0`` (words
+  from 2^32 - 128 up round to 1.0);
+* on the edges of every binade below 120 (2^k and the float below it,
+  both signs), the polynomial's edges (0.75, pi/4, 2^-12), +-0, and the
+  player's fire angles 0 and pi;
+* ``atan2f`` on 1,048,576 pairs (uniform in [-16, 16] and random bit
+  patterns), the axes and signed zeros, ``x = 1``, infinities, NaN, and
+  ratios beyond 2^60 and below 2^-60 on both sides.
+
+The oracle is glibc itself (``libm.so.6`` through ctypes) and the JAX
+package's jitted functions.  The exhaustive sweep of every distinct reset
+angle is ``tools/torch_libm_sweep.py``.  Tolerance: zero.
+"""
+
+import ctypes
+import ctypes.util
+import inspect
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from procgen_tpu_torch.core import libm  # noqa: E402
+
+M = 1 << 20
+F32 = np.float32
+HALF_PI = F32(np.pi / 2)
+
+
+def _glibc():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for name in ("cosf", "sinf"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    lib.atan2f.restype = ctypes.c_float
+    lib.atan2f.argtypes = [ctypes.c_float, ctypes.c_float]
+    return lib
+
+
+LIB = _glibc()
+
+
+def _oracle1(name, xs):
+    fn = getattr(LIB, name)
+    return np.fromiter((fn(v) for v in xs.tolist()), F32, len(xs))
+
+
+def _oracle_atan2(ys, xs):
+    fn = LIB.atan2f
+    return np.fromiter((fn(a, b) for a, b in zip(ys.tolist(), xs.tolist())),
+                       F32, len(xs))
+
+
+def _same_bits(got, want):
+    """Bit-equal, NaN for NaN; returns the indices that differ."""
+    got, want = np.asarray(got, F32), np.asarray(want, F32)
+    same = (got.view(np.uint32) == want.view(np.uint32)) | (np.isnan(got) & np.isnan(want))
+    return np.flatnonzero(~same)
+
+
+def _reset_angles():
+    """The reset's angles for 2^20 words from a seed, the angle of
+    rand01 = 1.0, the zero heading, and the player's fire angles."""
+    words = np.random.RandomState(2024).randint(0, 2**32, M, dtype=np.uint64)
+    words = np.concatenate([words, [2**32 - 1, 2**32 - 128, 2**32 - 129, 0]])
+    r01 = words.astype(F32) * F32(2.0**-32)
+    assert r01[-4] == r01[-3] == F32(1.0) and r01[-2] < F32(1.0)
+    theta = (r01 - F32(0.5)) * HALF_PI
+    return np.concatenate([theta, np.array([0.0, -0.0, np.pi, -np.pi], F32)])
+
+
+def _edges():
+    """2^k and the float below it for every binade below 120, both signs,
+    and the polynomial's own edges."""
+    ks = np.arange(-149, 7)
+    tops = np.ldexp(np.ones_like(ks, dtype=np.float64), ks).astype(F32)
+    below = np.nextafter(tops, F32(0))
+    special = np.array([0.75, np.pi / 4, 2.0**-12, 119.99999, 64.0, np.pi], F32)
+    around = np.concatenate([special, np.nextafter(special, F32(0)),
+                             np.nextafter(special, F32(200))])
+    xs = np.concatenate([tops, below, around, [0.0]]).astype(F32)
+    xs = xs[np.abs(xs) < 120]
+    return np.concatenate([xs, -xs])
+
+
+def _pairs():
+    rng = np.random.RandomState(7)
+    half = M // 2
+    uni = rng.uniform(-16, 16, (2, half)).astype(F32)
+    bits = rng.randint(0, 2**32, (2, half), dtype=np.uint64).astype(np.uint32).view(F32)
+    sp = np.array([0.0, -0.0, 1.0, -1.0, 3.0, -2.5, np.inf, -np.inf, np.nan,
+                   1e-30, -1e30, 2.0**70, -(2.0**70), 2.0**-70, -(2.0**-70),
+                   1e-45, -3.4e38], F32)
+    ys, xs = np.meshgrid(sp, sp)
+    return (np.concatenate([uni[0], bits[0], ys.ravel()]),
+            np.concatenate([uni[1], bits[1], xs.ravel()]))
+
+
+@pytest.fixture(scope="module")
+def jax_trig():
+    return (jax.jit(jnp.cos), jax.jit(jnp.sin), jax.jit(jnp.arctan2))
+
+
+@pytest.mark.parametrize("inputs", ["reset_angles", "edges"])
+@pytest.mark.parametrize("name", ["cosf", "sinf"])
+def test_cos_sin_match_glibc_and_jax(name, inputs, jax_trig):
+    xs = _reset_angles() if inputs == "reset_angles" else _edges()
+    got = getattr(libm, name)(torch.from_numpy(xs)).numpy()
+    jfn = jax_trig[0] if name == "cosf" else jax_trig[1]
+    want = np.asarray(jfn(jnp.asarray(xs)))
+    bad = _same_bits(got, want)
+    assert bad.size == 0, (xs[bad[:5]], got[bad[:5]], want[bad[:5]])
+    bad = _same_bits(got, _oracle1(name, xs))
+    assert bad.size == 0, (xs[bad[:5]], got[bad[:5]])
+
+
+def test_cos_sin_differ_from_torch():
+    """The reason for the module: torch's own cos and sin part from glibc
+    on a share of the reset angles."""
+    xs = torch.from_numpy(_reset_angles()[:M // 4])
+    for mine, theirs in ((libm.cosf, torch.cos), (libm.sinf, torch.sin)):
+        assert (mine(xs) != theirs(xs)).any()
+
+
+def _subnormal(v):
+    v = np.abs(np.asarray(v, F32))
+    return (v > 0) & (v < np.finfo(F32).tiny)
+
+
+def test_atan2_matches_glibc_and_jax(jax_trig):
+    """Against glibc everywhere; against the JAX package wherever no input
+    and no result is subnormal: XLA's CPU runtime flushes subnormals to
+    zero (a ratio beyond 2^126 gives them), glibc and the port do not."""
+    ys, xs = _pairs()
+    got = libm.atan2f(torch.from_numpy(ys), torch.from_numpy(xs)).numpy()
+    bad = _same_bits(got, _oracle_atan2(ys, xs))
+    assert bad.size == 0, (ys[bad[:5]], xs[bad[:5]], got[bad[:5]])
+    normal = ~(_subnormal(ys) | _subnormal(xs) | _subnormal(got))
+    assert normal.sum() > 0.97 * len(got)
+    want = np.asarray(jax_trig[2](jnp.asarray(ys), jnp.asarray(xs)))
+    bad = _same_bits(got[normal], want[normal])
+    assert bad.size == 0, (ys[normal][bad[:5]], xs[normal][bad[:5]], got[normal][bad[:5]])
+    assert (libm.atan2f(torch.from_numpy(ys[:M // 4]), torch.from_numpy(xs[:M // 4]))
+            != torch.atan2(torch.from_numpy(ys[:M // 4]), torch.from_numpy(xs[:M // 4]))).any()
+
+
+def test_atan2_special_cases():
+    """Signed zeros, the axes, x = 1 and the extreme ratios, one by one."""
+    f = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    cases = [(0.0, -0.0), (-0.0, -0.0), (-0.0, 5.0), (0.0, -5.0), (3.0, 0.0),
+             (-3.0, -0.0), (7.0, 1.0), (-0.25, 1.0), (2.0**61, 1.5), (1.5, -(2.0**61)),
+             (-1.5, 2.0**61), (np.inf, -np.inf), (-np.inf, np.inf), (5.0, np.inf),
+             (-5.0, -np.inf)]
+    ys, xs = (np.array(v, F32) for v in zip(*cases))
+    got = libm.atan2f(f(ys), f(xs)).numpy()
+    assert _same_bits(got, _oracle_atan2(ys, xs)).size == 0
+    assert np.signbit(got[2]) and not np.signbit(got[0])
+
+
+def test_large_arguments_are_not_ported():
+    """|x| >= 120 needs glibc's reduce_large, which is not ported: NaN."""
+    xs = torch.tensor([120.0, -500.0, 1e30, np.inf], dtype=torch.float32)
+    assert torch.isnan(libm.cosf(xs)).all() and torch.isnan(libm.sinf(xs)).all()
+
+
+def test_no_fused_or_library_trig_on_the_path():
+    """Starpilot's step takes its trig from ``core/libm.py`` alone, and the
+    module fuses no multiply into an add."""
+    from procgen_tpu_torch.games import starpilot
+
+    for mod in (starpilot, libm):
+        # the code, without its docstrings and comments
+        code = "\n".join(ln.split("#")[0] for ln in inspect.getsource(mod).splitlines())
+        code = code.replace(inspect.getdoc(mod) or "", "")
+        for banned in ("torch.cos(", "torch.sin(", "torch.atan2(", "math.cos(",
+                       "math.sin(", "math.atan2(", ".cos()", ".sin()", "addcmul",
+                       "addcdiv", "lerp", "baddbmm", "torch.fma"):
+            assert banned not in code, (mod.__name__, banned)

@@ -29,6 +29,13 @@ and ``_prep_one``.  Their JAX side runs in a child process held to AVX,
 as in tests/test_torch_coinrun.py: the camera offsets of these states are
 not zero, and XLA's CPU backend would fuse their multiply-adds.
 
+Made-up time-scrolled backgrounds (starpilot's K1d mode): starpilot states
+of every mode with their clocks spread over 0..1000 and their sprites
+anywhere, under both cameras: the port's plain renderer against
+``render_frame_reference``, and, on a card, ``render_frame`` against it.
+Starpilot's frames against the JAX package are in
+tests/test_torch_starpilot.py.
+
 Tolerance: zero — every frame and every prep value must match exactly.
 """
 
@@ -328,6 +335,79 @@ def test_tiled_frame_matches_pallas_and_xla(cam, tiled):
     np.testing.assert_array_equal(got, want[f"{cam}.pallas"])
     np.testing.assert_array_equal(want[f"{cam}.xla"], want[f"{cam}.pallas"])
     np.testing.assert_array_equal(trender_obs(game, ts, 64).numpy(), want[f"{cam}.xla"])
+
+
+
+# ---------------------------------------------------------------------------
+# made-up time-scrolled backgrounds: starpilot states
+# ---------------------------------------------------------------------------
+
+SCROLL_N = 8
+CLOCKS = [0, 1, 17, 125, 333, 499, 777, 1000]
+
+
+def _starpilot(mode=0, centred=False):
+    from procgen_tpu_torch.games.starpilot import Starpilot
+
+    game = Starpilot(GameOptions(distribution_mode=mode, center_agent=centred))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    return game
+
+
+def _scroll_states(mode, device="cpu"):
+    """Starpilot states after 20 steps with made-up clocks (0 to 1000, the
+    offsets of a whole episode), background images and sprites anywhere
+    on or off the world."""
+    tg = _starpilot(mode)
+    master = HostMT19937(31 + mode)
+    seeds = np.array([master.next_u32() for _ in range(SCROLL_N)], np.int64)
+    s = tlife.env_reset(tg, tlife.initial_state(tg, torch.as_tensor(seeds, device=device)))
+    for a in np.random.RandomState(mode).choice([9, 10, 1, 4, 7], (20, SCROLL_N)):
+        s, _ = tlife.env_step(tg, s, torch.as_tensor(a, device=device))
+    rng = np.random.RandomState(9 + mode)
+    e = s.ents
+    shape = tuple(e.x.shape)
+
+    def made_up(v):
+        return torch.as_tensor(v.astype(np.float32), device=device)
+
+    ents = e.replace(x=torch.where(e.active, made_up(rng.uniform(-2, 18, shape)), e.x),
+                     y=torch.where(e.active, made_up(rng.uniform(-2, 18, shape)), e.y))
+    bi = rng.randint(0, 13, SCROLL_N).astype(np.int32)
+    return s.replace(ents=ents.set_fields(0, x=made_up(rng.uniform(0.5, 15.5, SCROLL_N))),
+                     cur_time=torch.as_tensor(np.array(CLOCKS, np.int32), device=device),
+                     background_index=torch.as_tensor(bi, device=device))
+
+
+@pytest.mark.parametrize("centred", [False, True], ids=["world", "centred"])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_scroll_plain_renderer_matches_frame_reference(mode, centred):
+    """The plain renderer (the game's ``paint_background``) and
+    ``render_frame_reference`` (``prep_frame``'s scroll offset through
+    ``background_lookup``) paint the same frames."""
+    game = _starpilot(mode, centred)
+    s = _scroll_states(mode)
+    x = rk.prep_frame(rk.get_plan(game), s)
+    assert x.bg_mode == rk.BG_SCROLL
+    assert (x.sf[:, rk.SF_BGRX] == -s.cur_time.float() * 4 * np.float32(0.2)).all()
+    np.testing.assert_array_equal(trender_obs(game, s, 64).numpy(),
+                                  rk.render_obs_batch(game, s).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_cuda_scroll_frame_matches_frame_reference(mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s = _scroll_states(mode, device="cuda")
+    for centred in (False, True):
+        x = rk.prep_frame(rk.get_plan(_starpilot(mode, centred)), s)
+        before = rk.LAUNCHES["render_frame"]
+        got = rk.render_frame(x)
+        want = rk.render_frame_reference(x)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["render_frame"] == before + 1
+        assert torch.equal(got, want)
 
 
 if __name__ == "__main__":
