@@ -64,13 +64,26 @@ the process exits non-zero):
               steps on the card and on the CPU, bit-equal, every state leaf
               included; the starpilot_easy recording replayed exactly on
               the card.
-8. profile  — 10 more steps of each slice under ``torch.profiler``:
+8. plunder  — the static-prefix kernel's decor instance (``render_suffix``
+              with the explosion pool) against its plain version, byte for
+              byte, on the prep of 4096 plunder-easy states after 50 steps
+              of the slice's program, of 4096 plunder-hard states after 30,
+              both with live explosions, and on a made-up batch with a full
+              decor pool; the slice ``make_env_fns(4096, "plunder",
+              device="cuda")``, one ``render_suffix`` launch a step; the
+              kernel's time on the slice's states against the plain
+              version's and its bound; a 64-env ``ProcgenGym3Env`` for 50
+              steps on the card and on the CPU, bit-equal, every state leaf
+              included; the plunder_easy recording replayed exactly on the
+              card.
+9. profile  — 5 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-9. result   — a JSON line of the kernels (``render_frame`` once for each
-              path that launches it), the card line, and the last line
-              ``{"ok": true, "device": {...}}``.
+10. result  — a JSON line of the kernels (``render_suffix`` and
+              ``render_frame`` once for each path that launches them), the
+              card line, and the last line ``{"ok": true, "device":
+              {...}}``.
 
 Each path's launch counts are set to 0 just before its slice and read just
 after it; launches made to compare or time a kernel do not count.  It
@@ -94,8 +107,10 @@ TIMED_STEPS = 300
 # must stay well inside its time limit now that coinrun runs too
 MINER_WARM_STEPS = 50
 MINER_TIMED_STEPS = 150
-PROFILE_STEPS = 10
-SPLIT_STEPS = 100
+# the split and the profile run fewer steps than the slices (50 and 5
+# since plunder's phase came in), to keep the script near half its limit
+PROFILE_STEPS = 5
+SPLIT_STEPS = 50
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
@@ -143,7 +158,7 @@ def bound(moved, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def slot_ops(ent_f, ent_i, atlas, nz, zs, rk, torch):
+def slot_ops(ent_f, ent_i, atlas, nz, zs, rk, torch, count=None):
     """f32 operations the sprite pass and its composites need on this
     data: 8 for each live slot (its rectangle's ends and the reciprocals of
     its extents); 24 a pixel inside a live slot's rectangle (two
@@ -151,16 +166,20 @@ def slot_ops(ent_f, ent_i, atlas, nz, zs, rk, torch):
     the RGBA blend); 9 a pixel for each composited canvas ``zs`` whose
     alpha there is above 0 (elsewhere the composite is the identity).  The
     kernel's own test of every slot's rectangle at every pixel is its
-    design's cost, not the function's, and is not counted."""
+    design's cost, not the function's, and is not counted.  ``count``
+    ([N]): the pool's live count, past which no slot paints."""
     pix = torch.arange(64, dtype=torch.float32, device=ent_f.device) + 0.5
     live = (ent_i[..., rk.EI_LIVE] > 0) & (ent_i[..., rk.EI_Z] >= 0)
+    if count is not None:
+        slots = torch.arange(ent_i.shape[1], device=ent_i.device)[None, :]
+        live = live & (slots < count[:, None])
 
     def span(origin, extent):  # pixels of one axis inside the rectangle
         u = (pix - ent_f[..., origin, None]) / ent_f[..., extent, None]
         return ((u >= 0) & (u < 1)).sum(-1)
 
     inside = span(rk.EF_X0, rk.EF_W2) * span(rk.EF_Y0, rk.EF_H2)
-    canv = rk._slot_canvases(ent_f, ent_i, atlas, nz)
+    canv = rk._slot_canvases(ent_f, ent_i, atlas, nz, count=count)
     lit = sum(int((canv[z, ..., 3] > 0).sum()) for z in zs if z >= 0)
     return 8 * int(live.sum()) + 24 * int(inside[live].sum()) + 9 * lit
 
@@ -240,6 +259,28 @@ def frame_bound(x, rk, torch):
     return (*bound(moved, ops), f"{moved} bytes, {ops} f32 ops")
 
 
+def suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch):
+    """(bound_ms, bound_by, work) of ``render_suffix`` with the decor pool:
+    the bytes it must move on this data, each read once (the base frame
+    read and the frame written, both pools' live counts, the slots below
+    each count, the atlas rows those slots sample), against the f32
+    operations of both pools' slots and composites (``slot_ops``)."""
+    dev = base.device
+    slots, rows = 0, []
+    for i, count in ((ent_i, decor.counts[:, 0]), (decor.dec_i, decor.counts[:, 1])):
+        below = torch.arange(i.shape[1], device=dev)[None, :] < count[:, None]
+        slots += int(below.sum())
+        rows.append(i[..., rk.EI_ROW][below & (i[..., rk.EI_LIVE] > 0)])
+    rows = torch.cat(rows).clamp(0, atlas.shape[0] - 1).unique().numel()
+    moved = (2 * nbytes(base) + nbytes(decor.counts) + (rk.EF_N + rk.EI_N) * 4 * slots
+             + rows * atlas[0].numel())
+    ops = (slot_ops(ent_f, ent_i, atlas, nz, decor.z_slots, rk, torch,
+                    count=decor.counts[:, 0])
+           + slot_ops(decor.dec_f, decor.dec_i, atlas, decor.nzd, decor.dz_slots, rk,
+                      torch, count=decor.counts[:, 1]))
+    return (*bound(moved, ops), f"{moved} bytes, {ops} f32 ops")
+
+
 def time_frame(x, rk):
     """render_frame and render_frame_reference on ``x`` in turns (kernel,
     plain, kernel, plain): mean ms of each and the four readings.  The
@@ -288,13 +329,15 @@ def main():
                      miner_phase(dev, card, np, torch),
                      coinrun_phase(dev, card, np, torch),
                      fruitbot_phase(dev, card, np, torch),
-                     starpilot_phase(dev, card, np, torch))
+                     starpilot_phase(dev, card, np, torch),
+                     plunder_phase(dev, card, np, torch))
 
-    # -- 8. profile: after every timed phase ---------------------------------
-    for name, run in zip(("maze", "miner", "coinrun", "fruitbot", "starpilot"), runs):
+    # -- 9. profile: after every timed phase ---------------------------------
+    names = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder")
+    for name, run in zip(names, runs):
         profile_slice(name, *run, np, torch)
 
-    # -- 9. result -----------------------------------------------------------
+    # -- 10. result ----------------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -365,9 +408,9 @@ def run_slice(name, dev, card, np, torch, warm=WARM_STEPS, timed=TIMED_STEPS):
 
 
 def profile_slice(name, carry, step, wall_ms, np, torch):
-    """10 more steps of a slice under ``torch.profiler``: device records
-    and device ms a step, the device busy share (device ms over the
-    slice's timed ms a step) and the five largest kernels.  Run after
+    """``PROFILE_STEPS`` more steps of a slice under ``torch.profiler``:
+    device records and device ms a step, the device busy share (device ms
+    over the slice's timed ms a step) and the five largest kernels.  Run after
     every timed phase: the host dispatch stays slower once the profiler
     has run."""
     from torch.autograd import DeviceType
@@ -524,6 +567,7 @@ def maze_phase(dev, card, np, torch):
         f"firsts, {', '.join(keys)}); maze_easy replay exact ({checked} steps)")
     return (carry, step, wall_ms), {
         "name": "render_suffix",
+        "path": "maze",
         "route": "cuda",
         "source": "procgen_tpu_torch/csrc/render_suffix.cu",
         "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
@@ -959,6 +1003,112 @@ def starpilot_phase(dev, card, np, torch):
                                              plain_ms, b_ms, b_by)
 
 
+def suffix_check(base, ent_f, ent_i, atlas, nz, decor, what, rk, torch):
+    """render_suffix against render_suffix_reference; max abs err."""
+    got = rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor)
+    want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor)
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max())
+    if err != 0:
+        raise AssertionError(f"render_suffix != plain on {what} (max err {err})")
+    return err
+
+
+def plunder_phase(dev, card, np, torch):
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.entry import make_env_fns
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    # kernel vs plain version: easy after 50 steps of the slice's program,
+    # hard after 30, made-up inputs with a full decor pool
+    init, step, seeds = make_env_fns(NUM_ENVS, "plunder", device=dev)
+    carry = init(seeds)
+    rng = np.random.RandomState(1)
+    for _ in range(50):
+        acts = torch.as_tensor(rng.choice([9, 9, 1, 7, 4, 12], size=NUM_ENVS), device=dev)
+        carry, obs, rew, done = step(carry, acts)
+    plan = rk.get_plan(_game("plunder", 0))
+    atlas = plan.atlas(dev)
+    nz = len(plan.z_levels)
+    s = carry.states
+    ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+    err = suffix_check(s.frame.contiguous(), ent_f, ent_i, atlas, nz, decor,
+                       "plunder-easy states", rk, torch)
+    booms = int(s.decor.count.sum())
+    live = int(s.ents.count.sum())
+    del carry, obs, s
+
+    hard = _game("plunder", 1)
+    s = lifecycle.env_reset(hard, lifecycle.initial_state(hard, seeds))
+    for _ in range(30):
+        acts = torch.as_tensor(rng.choice([9, 9, 1, 7, 4], size=NUM_ENVS), device=dev)
+        s, _ = lifecycle.env_step(hard, s, acts)
+    hplan = rk.get_plan(hard)
+    ent_f, ent_i, decor = rk.prep_suffix(hplan, s)
+    err = max(err, suffix_check(s.frame.contiguous(), ent_f, ent_i, hplan.atlas(dev),
+                                nz, decor, "plunder-hard states", rk, torch))
+    booms_hard = int(s.decor.count.sum())
+    del s, ent_f, ent_i, decor
+
+    game = plan.game
+    base, ent_f, ent_i, decor = rk.synthetic_suffix_inputs(
+        NUM_ENVS, game.ENT_CAP, game.DECOR_CAP, atlas.shape[0], seed=9)
+    err = max(err, suffix_check(base.to(dev), ent_f.to(dev), ent_i.to(dev), atlas, nz,
+                                decor.to(dev), "made-up inputs, decor pool full", rk,
+                                torch))
+    if booms == 0 or booms_hard == 0:
+        raise AssertionError(f"plunder: no live explosions ({booms}, {booms_hard})")
+    log("plunder", f"render_suffix (decor instance) byte-equal: {NUM_ENVS} plunder-easy "
+        f"states after 50 steps ({live} live slots, {booms} explosions), {NUM_ENVS} "
+        f"plunder-hard states after 30 steps ({booms_hard} explosions), {NUM_ENVS} "
+        f"made-up envs (cap {game.ENT_CAP}, dcap {game.DECOR_CAP}); max_abs_err {err}")
+    del base, ent_f, ent_i, decor
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("plunder", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_suffix"] != total or launches["render_frame"] != 0:
+        raise AssertionError(f"plunder: launches {launches} in {total} steps")
+
+    # the kernel's time against the plain version's, on the slice's states
+    s = carry.states
+    base = s.frame.contiguous()
+    ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+    saved = dict(rk.LAUNCHES)
+    k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
+    p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor), 3)
+    k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
+    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor), 3)
+    rk.LAUNCHES.update(saved)
+    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    b_ms, b_by, b_work = suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch)
+    log("plunder", f"render_suffix (decor instance) at N={NUM_ENVS} ({int(s.ents.count.sum())} "
+        f"live slots, {int(s.decor.count.sum())} explosions): kernel {kernel_ms:.4f} ms, "
+        f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel, plain: {k1:.4f}, "
+        f"{p1:.4f}, {k2:.4f}, {p2:.4f}), bound {b_ms:.4f} ms ({b_by}; {b_work}) "
+        f"on {card}")
+    del base, ent_f, ent_i, decor, s
+
+    keys = gpu_matches_cpu("plunder", np, torch, states=True)
+    checked = replay_on_card("plunder_easy")
+    log("plunder", f"64 envs x 50 steps: GPU and CPU bit-equal (obs, rewards, firsts, "
+        f"{', '.join(keys)}); plunder_easy replay exact ({checked} steps)")
+    return (carry, step, wall_ms), {
+        "name": "render_suffix",
+        "path": "plunder",
+        "route": "cuda",
+        "source": "procgen_tpu_torch/csrc/render_suffix.cu",
+        "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
+        "launches": launches["render_suffix"],
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 def torch_ops(fn):
     """The torch operations ``fn()`` dispatches: a count, not a time."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -1008,10 +1158,10 @@ def step_split(carry, actions, name, torch):
         carry = vec.step_pool(game, carry, a, k)
         t = lap("step", t)
         if plan.static:
-            ent_f, ent_i = rk.prep(plan, carry.states)
+            ent_f, ent_i, decor = rk.prep_suffix(plan, carry.states)
             t = lap("prep", t)
             out = rk.render_suffix(carry.states.frame.contiguous(), ent_f, ent_i,
-                                   plan.atlas(dev), len(plan.z_levels))
+                                   plan.atlas(dev), len(plan.z_levels), decor)
         else:
             x = rk.prep_frame(plan, carry.states)
             t = lap("prep", t)
@@ -1022,7 +1172,7 @@ def step_split(carry, actions, name, torch):
     chunk = vec._tree_gather(carry.states, torch.arange(k, device=dev))
     ops = {
         "env_step": torch_ops(lambda: lifecycle.env_step(game, carry.states, actions[0])),
-        "frame prep": torch_ops(lambda: rk.prep(plan, carry.states) if plan.static
+        "frame prep": torch_ops(lambda: rk.prep_suffix(plan, carry.states) if plan.static
                                 else rk.prep_frame(plan, carry.states)),
         f"env_reset of {k} envs": torch_ops(lambda: lifecycle.env_reset(game, chunk)),
     }

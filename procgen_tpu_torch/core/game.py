@@ -4,14 +4,15 @@ The counterpart of ``procgen_tpu.core.game``.  A game is a plain Python
 class holding static configuration; all dynamic data lives in
 ``BasicState``, a dataclass of batch-first tensors with the JAX package's
 field names, dtypes and per-env shapes behind a leading ``[N]`` axis.  The
-port carries the subset of ``BasicAbstractGame`` that maze, miner,
-coinrun and fruitbot reach: grid-step and sub-stepped continuous movement
-(the agent with the entity-scan hook, the other smart movers batched over
-a compacted slot window), the vectorised collision dispatch with the
-agent's grid probe and the entity-pair hook, erase of both pools, the
-grid reads and writes, the reset path's RNG helpers, the rejection
-placement of ``reposition`` (``place_by_rejection``, batched over the
-envs), the sprite aspect-ratio fit and ``game_reset_base``.  The
+port carries the subset of ``BasicAbstractGame`` that the ported games
+reach: grid-step and sub-stepped continuous movement (the agent with the
+entity-scan hook, the other smart movers batched over a compacted slot
+window), the vectorised collision dispatch with the agent's grid probe
+and the entity-pair hook, erase of both pools, the spawn test over both
+pools (``spawn_blocked``), the grid reads and writes, the reset path's
+RNG helpers, the rejection placement of ``reposition``
+(``place_by_rejection``, batched over the envs), the sprite aspect-ratio
+fit and ``game_reset_base``.  The
 sequential entity scan, push chains and the sequential collision scan of
 the other games are queued in ROADMAP.md.
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from . import rng
@@ -605,6 +607,24 @@ class BasicAbstractGame:
             )
         )
 
+    def spawn_blocked(self, s: BasicState, x, y, rx, ry):
+        """has_any_collision of a spawn candidate (cpp:1123-1133) over both
+        pools, [N] bool: the C++ keeps explosions and trails in the same
+        entity vector and they do not avoid collisions, so they block a
+        spawn too.  ``x``, ``y``, ``rx``, ``ry``: floats or [N] tensors."""
+        def col(v):
+            return v[:, None] if torch.is_tensor(v) and v.dim() else v
+
+        def pool_hit(e):
+            return ((torch.abs(col(x) - e.x) < col(rx) + e.rx)
+                    & (torch.abs(col(y) - e.y) < col(ry) + e.ry)
+                    & e.active & ~e.avoids_collisions).any(dim=1)
+
+        hit = pool_hit(s.ents)
+        if self.DECOR_CAP:
+            hit = hit | pool_hit(s.decor)
+        return hit
+
     def step_smart_entities_vectorized(self, s: BasicState) -> BasicState:
         """Move every non-agent smart entity at once (SMART_VECTORIZABLE:
         they read only the grid and their own record, so the reference's
@@ -878,13 +898,17 @@ def first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(idx == n, 0, idx)
 
 
-def _rand_pos_draws(d: rng.Draws, cond, r, lo, hi):
+def _rand_pos_draws(d: rng.Draws, cond, r: float, lo: float, hi: float):
     """rand_pos (cpp:1109-1117, the JAX package's ``_rand_pos_raw``) on a
     peeked window: uniform in [lo + r, hi - r], drawn where ``cond``, where
-    the span exceeds 2r; else the span's centre, with no draw."""
+    the span exceeds 2r; else the span's centre, with no draw.  The
+    constants take the JAX package's forms: ``hi - lo - 2r`` in Python's
+    double, then ``* v + f32(r + lo)``, the one f32 constant XLA folds the
+    chain ``+ r + lo`` into."""
     need = torch.as_tensor((hi - lo) > 2 * r, device=cond.device)
     d, v = d.rand01_if(cond & need)
-    return d, torch.where(need, (hi - lo - 2 * r) * v + r + lo, (hi + lo) / 2)
+    offset = float(np.float32(r) + np.float32(lo))
+    return d, torch.where(need, (hi - lo - 2 * r) * v + offset, (hi + lo) / 2)
 
 
 def place_by_rejection(d: rng.Draws, blockers, rx, ry, x, y, w, h, do,

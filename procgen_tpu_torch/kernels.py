@@ -40,7 +40,7 @@ _I = ctypes.c_int
 # argument types of each C entry point: a c_void_p for every pointer and
 # the stream, a c_int for every int
 ENTRY_POINTS = {
-    "render_suffix": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "render_suffix": [_P] * 8 + [_I] * 11 + [_P],
     "render_frame": [_P] * 12 + [_I] * 21 + [_P],
 }
 

@@ -2,13 +2,15 @@
 
 The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
 
-* the static-prefix path, which maze takes: the background, grid tiles and
-  colored cells are composed once per level into ``state.frame``
-  (lifecycle.env_reset), and each step composites only the entity sprites
-  over that frame.  ``render_suffix`` launches ``csrc/render_suffix.cu``;
-  it reproduces the Pallas kernel's K1a (start from the cached frame), K1b
-  (per-slot sampling into premultiplied bf16 canvases, one per z level)
-  and K1c (composite z=0 then z=1, round, u8).
+* the static-prefix path, which maze and plunder take: the background,
+  grid tiles and colored cells are composed once per level into
+  ``state.frame`` (lifecycle.env_reset), and each step composites only the
+  sprites over that frame.  ``render_suffix`` launches
+  ``csrc/render_suffix.cu``; it reproduces the Pallas kernel's K1a (start
+  from the cached frame), K1b (per-slot sampling into premultiplied bf16
+  canvases, one per z level of each pool) and K1c (composite z=0 then
+  z=1, at each z the entity pool's canvas and then the decor pool's,
+  round, u8).
 * the whole-frame path of a game that is not static, which miner, coinrun,
   fruitbot and starpilot take, under the static camera or the
   agent-centred one.  ``render_frame`` launches ``csrc/render_frame.cu``;
@@ -22,7 +24,8 @@ The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
 
 ``prep`` evaluates every game hook at ``[N, cap]`` scale (rects, atlas
 rows, flips, tiling, fallback colors), ``_prep_pool`` of the JAX package
-operation for operation; ``prep_frame`` adds the per-env scalars, the grid
+operation for operation; ``prep_suffix`` adds the decor pool of the
+static path; ``prep_frame`` adds the per-env scalars, the grid
 window's row table and the colored-cell planes (the non-static branch of
 ``_prep_one``).  Each kernel has a plain torch twin,
 ``render_suffix_reference`` and ``render_frame_reference``, which serves
@@ -155,20 +158,20 @@ def get_plan(game, res: int = RES) -> RenderPlan:
     return _PLANS[key]
 
 
-# canvases the whole-frame kernel keeps a pixel (both pools together)
+# canvases each frame kernel keeps a pixel (both pools together)
 MAX_CANVASES = 4
 
 
 def supports(game, res: int = RES) -> bool:
     """Games whose per-step frame this module reproduces: the JAX gate
     (procgen_tpu/render/pallas_kernel.py:204-215) restricted to the ported
-    paths, textured, and either the static prefix with the entity pool
-    alone at z in (0, 1), or the whole frame with a fixed background image,
-    cropped (``bg_tile_ratio >= 0``), tiled vertically (``bg_tile_ratio <
-    0``, fruitbot) or scrolled with time (``PALLAS_BG == "scroll"`` with
-    starpilot's ``paint_background``), z in (-1, 0, 1) in both pools,
-    under the static camera or the agent-centred one.  Procedural
-    backgrounds, monochrome sprites, the decor pool on the static path, and
+    paths, textured, and either the static prefix with z in (0, 1) in
+    the entity pool and the decor pool, if any, or the whole frame with a
+    fixed background image, cropped (``bg_tile_ratio >= 0``), tiled
+    vertically (``bg_tile_ratio < 0``, fruitbot) or scrolled with time
+    (``PALLAS_BG == "scroll"`` with starpilot's ``paint_background``), z
+    in (-1, 0, 1) in both pools, under the static camera or the
+    agent-centred one.  Procedural backgrounds, monochrome sprites and
     memory mode's rules (ROADMAP) are not ported."""
     from ..core.constants import MEMORY_MODE
     from ..core.game import BasicAbstractGame
@@ -188,7 +191,7 @@ def supports(game, res: int = RES) -> bool:
     z = tuple(game.ENT_Z_LEVELS)
     dz = tuple(game.DECOR_Z_LEVELS) if game.DECOR_CAP else ()
     if game.static_prefix:
-        return not dz and z in ((0,), (1,), (0, 1))
+        return z in ((0,), (1,), (0, 1)) and dz in ((), (0,), (1,), (0, 1))
     return (
         not getattr(game, "DYNAMIC_VISIBILITY", False)
         and game.PALLAS_BG in ("standard", "scroll")
@@ -224,6 +227,45 @@ def prep_decor(plan: RenderPlan, s, cam):
         return (torch.zeros((n, 0, EF_N), dtype=f32, device=dev),
                 torch.zeros((n, 0, EI_N), dtype=i32, device=dev))
     return _prep_pool(plan, s, s.decor, None, plan.dz_levels, cam)
+
+
+@dataclasses.dataclass
+class SuffixDecor:
+    """The decor pool of the static-prefix path, beside the entity slots
+    that ``render_suffix`` takes: ``dec_f`` f32 [N, dcap, 8] and ``dec_i``
+    int32 [N, dcap, 10] from ``prep_decor``; ``counts`` int32 [N, 2], the
+    live counts of the entity pool and of the decor pool (each pool is
+    walked to its count); ``nzd``, the decor pool's canvases;
+    ``z_slots`` / ``dz_slots``, each pool's canvas index of z = 0 and
+    z = 1 (-1 for none)."""
+
+    dec_f: torch.Tensor
+    dec_i: torch.Tensor
+    counts: torch.Tensor
+    nzd: int
+    z_slots: tuple
+    dz_slots: tuple
+
+    def to(self, device) -> "SuffixDecor":
+        return dataclasses.replace(self, dec_f=self.dec_f.to(device),
+                                   dec_i=self.dec_i.to(device),
+                                   counts=self.counts.to(device))
+
+
+def prep_suffix(plan: RenderPlan, s):
+    """The static-prefix kernel's inputs: (ent_f, ent_i, decor), ``decor``
+    a ``SuffixDecor`` for a game with a decor pool (the static branch of
+    the JAX package's ``_prep_one`` with ``_pools_prep``, :244-380), else
+    None."""
+    cam = camera(plan.game, s, plan.res)
+    ent_f, ent_i = prep(plan, s, cam)
+    if not plan.dz_levels:
+        return ent_f, ent_i, None
+    dec_f, dec_i = prep_decor(plan, s, cam)
+    counts = torch.stack([s.ents.count, s.decor.count], dim=1).to(i32)
+    return ent_f, ent_i, SuffixDecor(
+        dec_f=dec_f, dec_i=dec_i, counts=counts, nzd=len(plan.dz_levels),
+        z_slots=plan.z_slots[1:], dz_slots=plan.dz_slots[1:])
 
 
 def _prep_pool(plan: RenderPlan, s, e, mask, z_levels, cam):
@@ -494,17 +536,29 @@ def _composite(obs, canv, z: int):
     return torch.round(c4[..., :3] + obs * (1 - c4[..., 3:]))
 
 
-def render_suffix_reference(base, ent_f, ent_i, atlas, nz: int):
+def render_suffix_reference(base, ent_f, ent_i, atlas, nz: int, decor=None):
     """Plain torch sprite suffix: the kernel's function on [N, cap, ...].
 
     ``base`` uint8 [N, 64, 64, 3] (the cached prefix frame), ``ent_f`` /
-    ``ent_i`` from ``prep``, ``atlas`` uint8 [2*n1e, S, S, 4].  The slot
-    canvases composite over the frame in z order.  Returns uint8
+    ``ent_i`` from ``prep``, ``atlas`` uint8 [2*n1e, S, S, 4].  Without
+    ``decor`` the entity pool's canvases composite over the frame in index
+    order.  With a ``SuffixDecor``, each pool is walked to its live count
+    and at z = 0, then z = 1, the entity pool's canvas composites, then the
+    decor pool's (pallas_kernel.py:951-967).  Returns uint8
     [N, 64, 64, 3]."""
-    canv = _slot_canvases(ent_f, ent_i, atlas, nz, base.shape[1])
+    res = base.shape[1]
     obs = base.to(f32)
-    for z in range(nz):
-        obs = _composite(obs, canv, z)
+    if decor is None:
+        canv = _slot_canvases(ent_f, ent_i, atlas, nz, res)
+        for z in range(nz):
+            obs = _composite(obs, canv, z)
+        return obs.to(i32).to(u8)
+    canv = _slot_canvases(ent_f, ent_i, atlas, nz, res, count=decor.counts[:, 0])
+    dcanv = _slot_canvases(decor.dec_f, decor.dec_i, atlas, decor.nzd, res,
+                           count=decor.counts[:, 1])
+    for k in range(2):
+        obs = _composite(_composite(obs, canv, decor.z_slots[k]), dcanv,
+                         decor.dz_slots[k])
     return obs.to(i32).to(u8)
 
 
@@ -526,28 +580,48 @@ def _check(name, tensors):
     return dev
 
 
-def render_suffix(base, ent_f, ent_i, atlas, nz: int):
+def render_suffix(base, ent_f, ent_i, atlas, nz: int, decor=None):
     """Launch ``csrc/render_suffix.cu`` on CUDA tensors (same contract as
-    ``render_suffix_reference``); raises on anything it does not take."""
+    ``render_suffix_reference``); raises on anything it does not take.
+    Without ``decor`` it launches the kernel's entity-only instance, with
+    it the instance that walks both pools."""
     from .. import kernels
 
     n, cap = base.shape[0], ent_f.shape[1]
-    dev = _check("render_suffix", [
+    checks = [
         ("base", base, u8, (n, RES, RES, 3)),
         ("ent_f", ent_f, f32, (n, cap, EF_N)),
         ("ent_i", ent_i, i32, (n, cap, EI_N)),
         ("atlas", atlas, u8, (atlas.shape[0], atlas.shape[1], atlas.shape[1], 4)),
-    ])
-    # up to 4 canvases in registers; the slots' 72 bytes each in the
-    # default 48 KiB of shared memory
-    if not 1 <= nz <= 4 or cap * 72 > 48 * 1024:
-        raise ValueError(f"render_suffix: nz={nz} or cap={cap} out of range")
+    ]
+    dcap, nzd, zs, dzs = 0, 0, (0, 1), (-1, -1)
+    dec_ptrs = (None, None, None)
+    if decor is not None:
+        dcap, nzd = decor.dec_f.shape[1], decor.nzd
+        zs, dzs = tuple(decor.z_slots), tuple(decor.dz_slots)
+        checks += [
+            ("dec_f", decor.dec_f, f32, (n, dcap, EF_N)),
+            ("dec_i", decor.dec_i, i32, (n, dcap, EI_N)),
+            ("counts", decor.counts, i32, (n, 2)),
+        ]
+        dec_ptrs = tuple(t.data_ptr() for t in (decor.dec_f, decor.dec_i, decor.counts))
+    # up to 4 canvases in registers, both pools together; the slots' 72
+    # bytes each in the default 48 KiB of shared memory
+    ok = 1 <= nz and nz + nzd <= MAX_CANVASES and (cap + dcap) * 72 <= 48 * 1024
+    if decor is not None:
+        ok = ok and nzd >= 1 and len(zs) == len(dzs) == 2 and all(
+            -1 <= z < nz for z in zs) and all(-1 <= z < nzd for z in dzs)
+    if not ok:
+        raise ValueError(f"render_suffix: nz={nz}, nzd={nzd}, z_slots={zs}, "
+                         f"dz_slots={dzs}, cap={cap} or dcap={dcap} out of range")
+    dev = _check("render_suffix", checks)
     out = torch.empty((n, RES, RES, 3), dtype=u8, device=dev)
     if n == 0:
         return out
     err = kernels.load().render_suffix(
-        base.data_ptr(), ent_f.data_ptr(), ent_i.data_ptr(), atlas.data_ptr(),
-        out.data_ptr(), n, cap, nz, atlas.shape[1], atlas.shape[0],
+        base.data_ptr(), ent_f.data_ptr(), ent_i.data_ptr(), *dec_ptrs,
+        atlas.data_ptr(), out.data_ptr(), n, cap, dcap, nz, nzd, *zs, *dzs,
+        atlas.shape[1], atlas.shape[0],
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
@@ -760,6 +834,34 @@ def synthetic_slots(n: int, cap: int, n_rows: int, seed: int = 0):
     return torch.as_tensor(ent_f), torch.as_tensor(ent_i)
 
 
+def synthetic_suffix_inputs(n: int, cap: int, dcap: int, n_rows: int,
+                            dz_levels=(0,), seed: int = 0):
+    """Made-up static-path inputs (CPU tensors) with a decor pool: (base,
+    ent_f, ent_i, decor).  A random uint8 base frame; the entity pool's
+    slots as ``synthetic_slots`` makes them, at z = 0 and 1 (and dead or
+    foreign-z ones); a full decor pool at ``dz_levels`` (its canvases), a
+    quarter of the envs with live counts below capacity in either pool
+    (the slots past them must not paint).  Built with numpy from
+    ``seed``."""
+    rng = np.random.RandomState(seed)
+    base = torch.as_tensor(rng.randint(0, 256, (n, RES, RES, 3)).astype(np.uint8))
+    ent_f, ent_i = synthetic_slots(n, cap, n_rows, seed=seed)
+    dec_f, dec_i = synthetic_slots(n, dcap, n_rows, seed=seed + 1)
+    nzd = len(dz_levels)
+    dec_i[..., EI_Z] = torch.as_tensor(rng.choice([-1, 0, 0, nzd], (n, dcap)))
+
+    def counts(c):
+        return np.where(rng.rand(n) < 0.25, rng.randint(0, c + 1, n), c)
+
+    decor = SuffixDecor(
+        dec_f=dec_f, dec_i=dec_i,
+        counts=torch.as_tensor(np.stack([counts(cap), counts(dcap)], 1).astype(np.int32)),
+        nzd=nzd, z_slots=(0, 1),
+        dz_slots=tuple(dz_levels.index(z) if z in dz_levels else -1 for z in (0, 1)),
+    )
+    return base, ent_f, ent_i, decor
+
+
 def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
                            ent_atlas, grid_opaque: int, seed: int = 0,
                            dcap: int = 0, bg_mode: int = BG_CROP):
@@ -847,14 +949,14 @@ def render_obs_batch(game, states, res: int = RES):
         )
     plan = get_plan(game, res)
     if plan.static:
-        ent_f, ent_i = prep(plan, states)
+        ent_f, ent_i, decor = prep_suffix(plan, states)
         base = states.frame
         atlas = plan.atlas(base.device)
         nz = len(plan.z_levels)
         if base.is_cuda:
-            out = render_suffix(base.contiguous(), ent_f, ent_i, atlas, nz)
+            out = render_suffix(base.contiguous(), ent_f, ent_i, atlas, nz, decor)
         else:
-            out = render_suffix_reference(base, ent_f, ent_i, atlas, nz)
+            out = render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor)
     else:
         x = prep_frame(plan, states)
         out = render_frame(x) if x.sf.is_cuda else render_frame_reference(x)

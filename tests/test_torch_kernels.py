@@ -22,6 +22,7 @@ from procgen_tpu_torch.games.coinrun import Coinrun
 from procgen_tpu_torch.games.fruitbot import Fruitbot
 from procgen_tpu_torch.games.maze import Maze
 from procgen_tpu_torch.games.miner import Miner
+from procgen_tpu_torch.games.plunder import Plunder
 from procgen_tpu_torch.games.starpilot import Starpilot
 from procgen_tpu_torch.render import render_kernel as rk
 
@@ -457,4 +458,131 @@ def test_cuda_frame_kernel_scroll_matches_plain_version():
         want = rk.render_frame_reference(x)
         torch.cuda.synchronize()
         assert rk.LAUNCHES["render_frame"] == before + 1
+        assert torch.equal(got, want)
+
+
+# -- the decor pool on the static-prefix path (plunder) ----------------------
+
+
+def _plunder(mode=0):
+    game = Plunder(GameOptions(distribution_mode=mode))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    return game
+
+
+def _synthetic_suffix(n, cap, dcap, dz_levels=(0,), seed=0, device="cpu"):
+    atlas = rk.get_plan(_plunder()).atlas(device)
+    base, ent_f, ent_i, decor = rk.synthetic_suffix_inputs(
+        n, cap, dcap, atlas.shape[0], dz_levels=dz_levels, seed=seed)
+    return base.to(device), ent_f.to(device), ent_i.to(device), atlas, decor.to(device)
+
+
+def test_synthetic_suffix_covers_the_decor_pool():
+    """The made-up static batch fills the decor pool (counts below the
+    capacity in some envs), at z = 0 and past it (clipped to it), and the
+    decor pool reaches the frame."""
+    base, ent_f, ent_i, atlas, decor = _synthetic_suffix(64, 6, 10, seed=1)
+    assert decor.nzd == 1 and decor.z_slots == (0, 1) and decor.dz_slots == (0, -1)
+    for i, count, zs in ((ent_i, decor.counts[:, 0], (0, 1)),
+                         (decor.dec_i, decor.counts[:, 1], (0, 1))):
+        live = _live_below_count(i, count) > 0
+        z = i[..., rk.EI_Z][live]
+        assert all((z == k).any() for k in zs)
+        assert (count < i.shape[1]).any() and (count == i.shape[1]).any()
+    no_decor = dataclasses.replace(decor, dec_i=decor.dec_i.clone())
+    no_decor.dec_i[..., rk.EI_LIVE] = 0
+    assert not torch.equal(
+        rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor),
+        rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, no_decor))
+
+
+def test_suffix_decor_composites_after_the_entity_pool():
+    """At z = 0 the decor pool's canvas goes over the entity pool's, and
+    the entity pool's z = 1 canvas over both: opaque fallback rects on the
+    same pixels show the decor rect's colour, or the z = 1 rect's."""
+    base, ent_f, ent_i, atlas, decor = _synthetic_suffix(2, 2, 1, seed=3)
+    rects = ((ent_f, ent_i, 0, 0, (200, 10, 10)), (decor.dec_f, decor.dec_i, 0, 0, (10, 200, 10)),
+             (ent_f, ent_i, 1, 1, (10, 10, 200)))
+    for f, i, slot, z, rgb in rects:
+        f[:, slot, :rk.EF_R] = torch.tensor([8.0, 8.0, 16.0, 16.0, 1.0])
+        f[:, slot, rk.EF_R:] = torch.tensor(rgb, dtype=torch.float32)
+        i[:, slot] = 0
+        i[:, slot, rk.EI_LIVE] = i[:, slot, rk.EI_FB] = 1
+        i[:, slot, rk.EI_Z] = z
+        i[:, slot, rk.EI_NTH] = i[:, slot, rk.EI_NTV] = 1
+    decor.counts[0] = torch.tensor([1, 1])  # env 0: the z = 1 rect is past the count
+    decor.counts[1] = torch.tensor([2, 1])
+    out = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor)
+    assert out[0, 12, 12].tolist() == [10, 200, 10]
+    assert out[1, 12, 12].tolist() == [10, 10, 200]
+
+
+def test_suffix_slots_past_the_count_do_not_paint():
+    """With the decor pool each pool is walked to its live count: clearing
+    the live flag of every slot at or past the count changes no pixel."""
+    base, ent_f, ent_i, atlas, decor = _synthetic_suffix(32, 6, 10, seed=2)
+    cleared = dataclasses.replace(decor, dec_i=decor.dec_i.clone())
+    cleared.dec_i[..., rk.EI_LIVE] = _live_below_count(decor.dec_i, decor.counts[:, 1])
+    ent_live = ent_i.clone()
+    ent_live[..., rk.EI_LIVE] = _live_below_count(ent_i, decor.counts[:, 0])
+    assert not torch.equal(ent_live, ent_i)
+    assert torch.equal(
+        rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor),
+        rk.render_suffix_reference(base, ent_f, ent_live, atlas, 2, cleared))
+
+
+def test_suffix_with_an_empty_decor_pool_is_the_entity_pass():
+    """The two instances agree where they overlap: an empty decor pool and
+    full entity counts give the frame of the entity-only path."""
+    base, ent_f, ent_i, atlas, decor = _synthetic_suffix(16, 6, 4, seed=5)
+    empty = dataclasses.replace(decor, counts=torch.stack(
+        [torch.full((16,), 6), torch.zeros(16, dtype=torch.int64)], 1).to(torch.int32))
+    assert torch.equal(rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, empty),
+                       rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2))
+
+
+def test_suffix_decor_bad_inputs_raise():
+    """On CPU tensors the wrapper raises before any launch; more than four
+    canvases, a z index past a pool's canvases or pools past the 48 KB of
+    shared memory are refused."""
+    base, ent_f, ent_i, atlas, decor = _synthetic_suffix(2, 6, 4, dz_levels=(0, 1))
+    before = dict(rk.LAUNCHES)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        rk.render_suffix(base, ent_f, ent_i, atlas, 2, decor)
+    for bad in (dataclasses.replace(decor, nzd=3),
+                dataclasses.replace(decor, dz_slots=(0, 2)),
+                dataclasses.replace(decor, dec_f=decor.dec_f.repeat(1, 200, 1),
+                                    dec_i=decor.dec_i.repeat(1, 200, 1))):
+        with pytest.raises(ValueError, match="out of range"):
+            rk.render_suffix(base, ent_f, ent_i, atlas, 2, bad)
+    assert rk.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_suffix_kernel_decor_matches_plain_version():
+    """The decor instance: made-up full pools with the decor canvas at
+    z = 0 (plunder's) and at z = 0 and 1 (four canvases), and plunder easy
+    and hard states with live explosions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    inputs = [_synthetic_suffix(256, 48, 24, seed=7, device=dev),
+              _synthetic_suffix(256, 40, 160, dz_levels=(0, 1), seed=8, device=dev)]
+    seeds = torch.arange(64, dtype=torch.int64, device=dev) * 7919 + 5
+    for mode in (0, 1):
+        game = _plunder(mode)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        acts = np.random.RandomState(mode).choice([9, 10, 1, 7, 4], (60, 64))
+        for a in acts:
+            s, _ = lifecycle.env_step(game, s, torch.as_tensor(a, device=dev))
+        assert int(s.decor.count.sum()) > 0
+        plan = rk.get_plan(game)
+        ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+        inputs.append((s.frame.contiguous(), ent_f, ent_i, plan.atlas(dev), decor))
+    for base, ent_f, ent_i, atlas, decor in inputs:
+        before = rk.LAUNCHES["render_suffix"]
+        got = rk.render_suffix(base, ent_f, ent_i, atlas, 2, decor)
+        want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["render_suffix"] == before + 1
         assert torch.equal(got, want)
