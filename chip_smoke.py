@@ -51,8 +51,9 @@ the process exits non-zero):
               replayed exactly on the card.
 7. starpilot — ``core/libm.py``'s ``sincosf`` and ``atan2f`` on the card
               against the same functions on the CPU, bit for bit, on
-              4,194,304 reset angles and 1,048,576 angles in (-120, 120)
-              (the sine and cosine of each) and 4,194,304 pairs;
+              4,194,304 reset angles, 1,048,576 angles in (-120, 120) and
+              1,048,576 of |x| from 120 to 2^127 (glibc's reduce_large; the
+              sine and cosine of each) and 4,194,304 pairs;
               ``render_frame`` with the time-scrolled
               background against its plain version, byte for byte, on the
               prep of 4096 starpilot-easy states after 50 random steps
@@ -76,14 +77,37 @@ the process exits non-zero):
               steps on the card and on the CPU, bit-equal, every state leaf
               included; the plunder_easy recording replayed exactly on the
               card.
-9. profile  — 5 more steps of each slice under ``torch.profiler``:
+9. genassets — generated assets: the background painter
+              ``assetgen_bg`` against its plain version, byte for byte, on
+              the draw blocks of 256 seeded streams and on a made-up block
+              that takes the longest path, its time at 64 envs (a
+              replenish chunk) and 4096 (the initial reset) and one env's
+              serial latency, and at 4096 envs the 32 envs within 4 of
+              its chunk edges against the plain version; ``render_frame``
+              on each env's painted canvas against its plain version, byte
+              for byte, on 4096 states after 50 steps of coinrun easy
+              (whole-world and centred cameras), fruitbot easy (tiled),
+              miner easy and starpilot easy (cropped), and its time on
+              painted coinrun and fruitbot against the atlas background's
+              on the same states; the 4096-env coinrun
+              ``ProcgenGym3Env(use_generated_assets=True)`` for 100 timed
+              act + observe steps after 10, in alternating windows with the
+              same env without generated assets, one ``render_frame``
+              launch a step, the painter's launches counted (a replenish
+              among them), a per-layer split of both steps, and the
+              centred fruitbot one for 40 after 10, a replenish among its
+              painter launches; 64-env generated-assets maze and coinrun
+              on the card and on the CPU for 50 steps, bit-equal, every
+              state leaf included; the maze_genassets recording replayed
+              exactly on the card.
+10. profile — 5 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-10. result  — a JSON line of the kernels (``render_suffix`` and
-              ``render_frame`` once for each path that launches them), the
-              card line, and the last line ``{"ok": true, "device":
-              {...}}``.
+11. result  — a JSON line of the kernels (``render_suffix``,
+              ``render_frame`` and ``assetgen_bg`` once for each path that
+              launches them), the card line, and the last line ``{"ok":
+              true, "device": {...}}``.
 
 Each path's launch counts are set to 0 just before its slice and read just
 after it; launches made to compare or time a kernel do not count.  It
@@ -101,16 +125,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 NUM_ENVS = 4096
+# the slices run the bench protocol's 100 warm-up and 300 timed steps
 WARM_STEPS = 100
 TIMED_STEPS = 300
 # miner's slice runs fewer steps: its step is the slowest, and the script
 # must stay well inside its time limit now that coinrun runs too
 MINER_WARM_STEPS = 50
 MINER_TIMED_STEPS = 150
-# the split and the profile run fewer steps than the slices (50 and 5
-# since plunder's phase came in), to keep the script near half its limit
+# the centred gym3 envs: timed steps after 10 warm-up ones
+GYM_TIMED_STEPS = 100
+# the split and the profile run fewer steps than the slices (25 since the
+# generated-assets phase came in, and 5), to keep the script well inside
+# its limit on a slow host
 PROFILE_STEPS = 5
-SPLIT_STEPS = 50
+SPLIT_STEPS = 25
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
@@ -119,7 +148,7 @@ F32_FLOPS = 67e12
 
 
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} +{time.perf_counter() - T_START:.0f}s] {msg}", flush=True)
 
 
 def card_line():
@@ -209,7 +238,8 @@ def frame_bytes(x, rk, torch):
     other four planes of the valid ones among these, and the slots below
     each pool's live count; of the shared atlases, the rows this data
     samples (of the background images, the rows some pixel shows, tiled or
-    cropped, or the texels some pixel shows, scrolled)."""
+    cropped, or the texels some pixel shows, scrolled; of each env's own
+    painted canvas, the texels some pixel shows)."""
     n, NC = x.sf.shape[0], x.gtab.shape[1]
     dev = x.sf.device
     _, _, inside, crow, ccol, row, _ = rk.grid_lookup(x)
@@ -233,9 +263,10 @@ def frame_bytes(x, rk, torch):
     ga, ea, bg = x.grid_atlas, x.ent_atlas, x.bg_atlas
     atlas = (ent_rows.unique().numel() * ea[0].numel()
              + row[inside].unique().numel() * ga[0].numel())
-    if x.bg_mode == rk.BG_SCROLL:
+    if x.bg_mode == rk.BG_SCROLL or x.per_env_bg:
         # the scrolled tiles show each image row across a shifting window
-        # of its columns: the texels some pixel shows
+        # of its columns, and each env reads a window of its own canvas:
+        # the texels some pixel shows
         bi, row_idx, col_idx, in_y, in_x = rk.background_lookup(x)
         BH, BW = bg.shape[1], bg.shape[2]
         key = ((bi[:, None, None] * BH + row_idx[:, :, None]) * BW
@@ -294,9 +325,10 @@ def time_frame(x, rk):
     return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}"
 
 
-def zero_counts(rk):
-    for k in rk.LAUNCHES:
-        rk.LAUNCHES[k] = 0
+def zero_counts(*mods):
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
 
 
 def main():
@@ -331,13 +363,14 @@ def main():
                      fruitbot_phase(dev, card, np, torch),
                      starpilot_phase(dev, card, np, torch),
                      plunder_phase(dev, card, np, torch))
+    rows = list(rows) + genassets_phase(dev, card, np, torch)
 
-    # -- 9. profile: after every timed phase ---------------------------------
+    # -- 10. profile: after every timed phase --------------------------------
     names = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder")
     for name, run in zip(names, runs):
         profile_slice(name, *run, np, torch)
 
-    # -- 10. result ----------------------------------------------------------
+    # -- 11. result ----------------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -360,7 +393,8 @@ def _game(name, mode):
 
 def run_slice(name, dev, card, np, torch, warm=WARM_STEPS, timed=TIMED_STEPS):
     """The main path of one game: ``make_env_fns(4096, name)``, ``warm``
-    warm-up and ``timed`` timed steps (the bench protocol: 100 and 300),
+    warm-up and ``timed`` timed steps (50 and 150; the bench protocol's
+    100 and 300 before),
     launch counts zeroed just before and read just after.  Returns (carry,
     launches, step, ms a timed step)."""
     from procgen_tpu_torch.entry import make_env_fns
@@ -441,15 +475,16 @@ def profile_slice(name, carry, step, wall_ms, np, torch):
         + "; ".join(f"{k} {v:.3f}" for k, v in by_name.most_common(5)))
 
 
-def gpu_matches_cpu(name, np, torch, states=False):
-    """A 64-env ProcgenGym3Env for 50 steps on the card and on the CPU:
-    obs, rewards, firsts and every info field (latents included) equal;
-    with ``states``, every leaf of the last states too."""
+def gpu_matches_cpu(name, np, torch, states=False, **opts):
+    """A 64-env ProcgenGym3Env (``opts``: its options) for 50 steps on the
+    card and on the CPU: obs, rewards, firsts and every info field
+    (latents included) equal; with ``states``, every leaf of the last
+    states too."""
     from procgen_tpu_torch import ProcgenGym3Env
     from procgen_tpu_torch.bridge import state_to_numpy
 
     envs = {d: ProcgenGym3Env(num=64, env_name=name, distribution_mode="easy",
-                              rand_seed=0, device=d) for d in ("cuda", "cpu")}
+                              rand_seed=0, device=d, **opts) for d in ("cuda", "cpu")}
     arng = np.random.RandomState(3)
     for t in range(50):
         a = arng.randint(0, 15, size=64).astype(np.int32)
@@ -483,10 +518,10 @@ def _leaves(tree, pre=""):
     return out
 
 
-def replay_on_card(name):
+def replay_on_card(name, folder="conformance"):
     from procgen_tpu_torch.conformance import replay
 
-    with open(os.path.join(ROOT, "tests", "data", "conformance", f"{name}.json")) as f:
+    with open(os.path.join(ROOT, "tests", "data", folder, f"{name}.json")) as f:
         rec = json.load(f)
     res = replay(rec, device="cuda")
     if res["first_divergence"] is not None:
@@ -766,15 +801,15 @@ def coinrun_phase(dev, card, np, torch):
 
 def gym_centred(name, card, np, torch):
     """The gym3 surface at full width, act + observe, the centred camera
-    (``ProcgenGym3Env``'s default): 100 timed steps after 10; returns the
-    render_frame launches in the timed steps."""
+    (``ProcgenGym3Env``'s default): ``GYM_TIMED_STEPS`` timed steps after
+    10; returns the render_frame launches in the timed steps."""
     from procgen_tpu_torch import ProcgenGym3Env
     from procgen_tpu_torch.render import render_kernel as rk
 
     env = ProcgenGym3Env(num=NUM_ENVS, env_name=name, distribution_mode="easy",
                          rand_seed=0, device="cuda")
     arng = np.random.RandomState(5)
-    acts = arng.randint(0, 15, size=(110, NUM_ENVS)).astype(np.int32)
+    acts = arng.randint(0, 15, size=(10 + GYM_TIMED_STEPS, NUM_ENVS)).astype(np.int32)
     for a in acts[:10]:
         env.act(a)
         env.observe()
@@ -786,11 +821,12 @@ def gym_centred(name, card, np, torch):
         rew_, obs_, first_ = env.observe()
     dt = time.perf_counter() - t0
     n_gym = rk.LAUNCHES["render_frame"] - before
-    if obs_["rgb"].shape != (NUM_ENVS, 64, 64, 3) or n_gym != 100:
+    if obs_["rgb"].shape != (NUM_ENVS, 64, 64, 3) or n_gym != GYM_TIMED_STEPS:
         raise AssertionError(f"gym3 {name}: obs {obs_['rgb'].shape}, {n_gym} launches")
-    log(name, f"ProcgenGym3Env centred: {100 * NUM_ENVS / dt:.1f} env-steps/s "
-        f"({dt * 10:.2f} ms per act+observe, {NUM_ENVS} envs, 100 timed steps after "
-        f"10, obs copied to the host) on {card}; {n_gym} render_frame launches")
+    log(name, f"ProcgenGym3Env centred: {GYM_TIMED_STEPS * NUM_ENVS / dt:.1f} "
+        f"env-steps/s ({dt / GYM_TIMED_STEPS * 1e3:.2f} ms per act+observe, "
+        f"{NUM_ENVS} envs, {GYM_TIMED_STEPS} timed steps after 10, obs copied to "
+        f"the host) on {card}; {n_gym} render_frame launches")
     return n_gym
 
 
@@ -893,9 +929,12 @@ def libm_check(dev, np, torch):
     words = rng.randint(0, 2**32, n, dtype=np.uint64).astype(np.float32)
     reset = (words * np.float32(2.0**-32) - np.float32(0.5)) * np.float32(np.pi / 2)
     wide = rng.uniform(-119.9, 119.9, n // 4).astype(np.float32)
+    # glibc's reduce_large: |x| from 120 to 2^127, log-uniform, both signs
+    large = (np.exp2(rng.uniform(np.log2(120.0), 127.99, n // 4))
+             * rng.choice([-1.0, 1.0], n // 4)).astype(np.float32)
     ys = np.concatenate([rng.uniform(-16, 16, n // 2), rng.uniform(-1, 1, n // 2)])
     xs = np.concatenate([rng.uniform(-16, 16, n // 2), rng.uniform(-1, 1, n // 2)])
-    cases = [(libm.sincosf, (reset,)), (libm.sincosf, (wide,)),
+    cases = [(libm.sincosf, (reset,)), (libm.sincosf, (wide,)), (libm.sincosf, (large,)),
              (libm.atan2f, (ys.astype(np.float32), xs.astype(np.float32)))]
     total = 0
     for fn, args in cases:
@@ -903,9 +942,10 @@ def libm_check(dev, np, torch):
         gpu = fn(*(torch.from_numpy(a).to(dev) for a in args))
         for c, g in zip(*(((t,) if torch.is_tensor(t) else t) for t in (cpu, gpu))):
             differ = int((c.view(torch.int32) != g.cpu().view(torch.int32)).sum())
-            if differ:
+            if differ or bool(torch.isnan(c).any()):
                 raise AssertionError(
-                    f"libm.{fn.__name__}: card and CPU differ on {differ} inputs")
+                    f"libm.{fn.__name__}: card and CPU differ on {differ} inputs "
+                    f"(or NaN for a finite input)")
             total += c.numel()
     return total
 
@@ -926,7 +966,7 @@ def starpilot_phase(dev, card, np, torch):
     t0 = time.perf_counter()
     n_trig = libm_check(dev, np, torch)
     log("starpilot", f"libm cosf, sinf, atan2f: card and CPU bit-equal on {n_trig} "
-        f"inputs ({time.perf_counter() - t0:.1f} s)")
+        f"inputs, |x| >= 120 among them, no NaN ({time.perf_counter() - t0:.1f} s)")
 
     # kernel vs plain version: easy after 50 steps under both cameras,
     # hard and extreme after 20, made-up scroll offsets
@@ -1109,6 +1149,295 @@ def plunder_phase(dev, card, np, torch):
     }
 
 
+def painter_ops(vals, torch):
+    """f32 operations ``assetgen_bg`` needs on these words (int64 [N,
+    N_MAX] on the card): 4 a word used (its conversion and the formula it
+    feeds); for each paint, 2 a row and a column of its span (the edge
+    tests) for a fill or a blend and 6 for an ellipse (the offset, the
+    division and the square of both ellipses), then 4 a pixel of an
+    ellipse's span (the sums and the tests) and 9 a pixel a blend covers
+    (two products and a sum a channel); 6 a pixel at the end (the round and
+    the clip of each channel).  The paints come from the plain version's
+    walk, 512 envs at a time."""
+    from procgen_tpu_torch.core import assetgen as ag
+
+    g = (torch.arange(128, dtype=torch.float32, device=vals.device) + 0.5) * (500.0 / 128)
+    total = 0
+    for e0 in range(0, vals.shape[0], 512):
+        (kind, rect, _, _, _), used = ag._paints(vals[e0:e0 + 512])
+        x, y, w, h = (rect[..., k, None] for k in range(4))
+        a = torch.clamp_min(w * 0.5, ag.EPS)
+        b = torch.clamp_min(h * 0.5, ag.EPS)
+        ell = (kind == ag.ELLIPSE)[..., None]
+        rows = torch.where(ell, ((g - (y + h * 0.5)) / b) ** 2 <= 1.0,
+                           (g >= y) & (g < y + h)).sum(-1)
+        cols = torch.where(ell, ((g - (x + w * 0.5)) / a) ** 2 <= 1.0,
+                           (g >= x) & (g < x + w)).sum(-1)
+        ell = ell[..., 0]
+        per = torch.where(ell, 6 * (rows + cols) + 4 * rows * cols, 2 * (rows + cols))
+        per = per + torch.where(kind == ag.BLEND, 9 * rows * cols, 0)
+        total += int(per[kind > 0].sum()) + 4 * int(used.sum())
+    return total + 6 * 3 * 128 * 128 * vals.shape[0]
+
+
+def painter_bound(vals, used, torch, ops=True):
+    """(bound_ms, bound_by, work) of ``assetgen_bg``: the words each env
+    used read once (int64 each) and the canvases and the words used
+    written, against ``painter_ops`` (not counted with ``ops=False``: the
+    bytes then decide the bound by themselves).  The serial walk's latency
+    is timed apart."""
+    moved = 8 * int(used.sum()) + vals.shape[0] * (128 * 128 * 3 + 4)
+    if not ops:
+        return (*bound(moved, 0), f"{moved} bytes, operations not counted")
+    ops = painter_ops(vals, torch)
+    return (*bound(moved, ops), f"{moved} bytes, {ops} f32 ops")
+
+
+def gym_genassets(name, dev, card, np, torch, baseline=False, timed=GYM_TIMED_STEPS):
+    """The gym3 surface with generated assets at full width, act + observe,
+    the centred camera: ``timed`` timed steps after 10.  The
+    launch counts are zeroed just before each stretch of this env's work
+    (its making, its steps) and read just after.  With ``baseline``, the
+    same env without generated assets is made beside it and both are timed
+    in alternating windows (without, with, with, without) on the same
+    actions; coinrun's step split follows for each.  Returns the launches
+    of the kernels and the env-steps/s (with, and without or None)."""
+    from collections import Counter
+
+    from procgen_tpu_torch import ProcgenGym3Env
+    from procgen_tpu_torch.core import assetgen
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    launches = Counter()
+
+    def counted(fn):
+        zero_counts(rk, assetgen)
+        out = fn()
+        launches.update({**rk.LAUNCHES, **assetgen.LAUNCHES})
+        return out
+
+    def make(gen):
+        t0 = time.perf_counter()
+        env = ProcgenGym3Env(num=NUM_ENVS, env_name=name, distribution_mode="easy",
+                             rand_seed=0, device=dev, use_generated_assets=gen)
+        torch.cuda.synchronize()
+        return env, time.perf_counter() - t0
+
+    def run(env, acts_):
+        out = None
+        for a in acts_:
+            env.act(a)
+            out = env.observe()
+        return out
+
+    def window(env, acts_):  # seconds of these steps; observe copies to the host
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(env, acts_)
+        return time.perf_counter() - t0, out
+
+    acts = np.random.RandomState(5).randint(0, 15, size=(10 + timed, NUM_ENVS))
+    acts = acts.astype(np.int32)
+    warm, half = acts[:10], (acts[10:10 + timed // 2], acts[10 + timed // 2:])
+    env, t_init = counted(lambda: make(True))
+    counted(lambda: run(env, warm))
+    envs = {True: env}
+    if baseline:
+        envs[False], _ = make(False)
+        run(envs[False], warm)
+    secs = {True: 0.0, False: 0.0}
+    order = ((False, 0), (True, 0), (True, 1), (False, 1)) if baseline else ((True, 0), (True, 1))
+    for gen, h in order:
+        if gen:
+            dt, (rew_, obs_, _) = counted(lambda: window(env, half[h]))
+        else:
+            dt, _ = window(envs[False], half[h])
+        secs[gen] += dt
+    rgb = obs_["rgb"]
+    if rgb.shape != (NUM_ENVS, 64, 64, 3) or rgb.dtype != np.uint8 or not np.isfinite(rew_).all():
+        raise AssertionError(f"gym3 {name} genassets: obs {rgb.shape} {rgb.dtype}")
+    # 2 painter launches make the envs (states and pool), so a third is a
+    # reset's replenish chunk
+    if launches["render_frame"] != 10 + timed or launches["assetgen_bg"] <= 2:
+        raise AssertionError(f"gym3 {name} genassets: launches {dict(launches)} in "
+                             f"{10 + timed} steps")
+    rates = {gen: timed * NUM_ENVS / secs[gen] for gen in envs}
+    for gen in envs:
+        if name == "coinrun":
+            # the layers of this configuration's step and its torch operations
+            actions = torch.as_tensor(acts[:SPLIT_STEPS], device=dev)
+            split, ops = step_split(envs[gen]._vec.carry, actions, name, torch,
+                                    envs[gen]._vec.game)
+            log("genassets", f"{name} centred, generated assets {gen}, step split "
+                f"(synchronised, ms/step): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + "; torch operations dispatched (a count): "
+                + ", ".join(f"{k} {v}" for k, v in ops.items()))
+        log("genassets", f"ProcgenGym3Env({name}, use_generated_assets={gen}) centred: "
+            f"{rates[gen]:.1f} env-steps/s ({secs[gen] / timed * 1e3:.2f} ms per "
+            f"act+observe, {NUM_ENVS} envs, {timed} timed steps after 10"
+            f"{' in alternating windows' if baseline else ''}, obs copied to the host"
+            f"{f'; init {t_init:.2f}s' if gen else ''}) on {card}")
+    log("genassets", f"{name} with generated assets: launches {dict(launches)} from the "
+        f"envs' making to the last step")
+    return launches, rates[True], rates.get(False)
+
+
+def genassets_phase(dev, card, np, torch):
+    """Generated assets: the painter, the painted canvas in render_frame,
+    the gym3 path, card against CPU, the recording.  Returns the kernels
+    line's rows."""
+    from procgen_tpu_torch.core import lifecycle, rng
+    from procgen_tpu_torch.core.constants import INT32_MAX
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.games.registry import make_game
+    from procgen_tpu_torch.core import assetgen
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    # the painter against its plain version (on the CPU copy of the words)
+    t0 = time.perf_counter()
+    seeds = torch.as_tensor(np.random.RandomState(21).randint(0, 2**31, 256),
+                            dtype=torch.int64, device=dev)
+    vals, _ = rng.draw_block(rng.seed(seeds), assetgen.N_MAX)
+    longest = torch.as_tensor(assetgen.longest_path_words(0), device=dev)[None]
+    vals = torch.cat([vals, longest]).contiguous()
+    saved = dict(assetgen.LAUNCHES)
+    got_c, got_u = assetgen.generate_background(vals)
+    torch.cuda.synchronize()
+    assetgen.LAUNCHES.update(saved)
+    want_c, want_u = assetgen.generate_background_reference(vals.cpu())
+    perr = int((got_c.cpu().int() - want_c.int()).abs().max())
+    if perr != 0 or not torch.equal(got_u.cpu(), want_u):
+        raise AssertionError(f"assetgen_bg != plain (max err {perr}, words used "
+                             f"equal: {torch.equal(got_u.cpu(), want_u)})")
+    if int(got_u[-1]) != 50701:
+        raise AssertionError(f"the longest path used {int(got_u[-1])} words")
+    log("genassets", f"assetgen_bg byte-equal: 256 seeded draw blocks (words used "
+        f"{int(want_u[:-1].min())}-{int(want_u[:-1].max())}, mean "
+        f"{float(want_u[:-1].float().mean()):.1f}) and the longest path (50701 "
+        f"words, {assetgen.MAX_PAINTS} paints); max_abs_err {perr} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # its time: a replenish chunk (64 envs), the initial reset (4096), one
+    # env (the serial walk's latency), against the plain version at 64
+    big_seeds = torch.as_tensor(np.random.RandomState(22).randint(0, 2**31, NUM_ENVS),
+                                dtype=torch.int64, device=dev)
+    v4096, _ = rng.draw_block(rng.seed(big_seeds), assetgen.N_MAX)
+    v4096 = v4096.contiguous()
+    v64 = v4096[:64].contiguous()
+    saved = dict(assetgen.LAUNCHES)
+    k64a = cuda_ms(lambda: assetgen.generate_background(v64), 20)
+    k4096 = cuda_ms(lambda: assetgen.generate_background(v4096), 3)
+    k64b = cuda_ms(lambda: assetgen.generate_background(v64), 20)
+    k1 = cuda_ms(lambda: assetgen.generate_background(v64[:1]), 20)
+    k1_long = cuda_ms(lambda: assetgen.generate_background(longest), 20)
+    t1 = time.perf_counter()
+    _, u64 = assetgen.generate_background_reference(v64)
+    torch.cuda.synchronize()
+    p64 = (time.perf_counter() - t1) * 1e3  # host-bound: one synchronised call
+    _, u64 = assetgen.generate_background(v64)
+    c4096, u4096 = assetgen.generate_background(v4096)
+    assetgen.LAUNCHES.update(saved)
+    k64 = (k64a + k64b) / 2
+    b64, b64_by, b64_work = painter_bound(v64, u64, torch)
+    b4096, b4096_by, b4096_work = painter_bound(v4096, u4096, torch, ops=False)
+    # the initial reset's 4096 envs go through the kernel's chunks of 1024,
+    # one paint scratch reused: the envs on each side of every chunk edge
+    # against the plain version
+    t1 = time.perf_counter()
+    edge = torch.tensor([e for b in range(0, NUM_ENVS + 1, 1024)
+                         for e in range(b - 4, b + 4) if 0 <= e < NUM_ENVS], device=dev)
+    want_c, want_u = assetgen.generate_background_reference(v4096[edge].cpu())
+    perr = max(perr, int((c4096[edge].cpu().int() - want_c.int()).abs().max()))
+    if perr != 0 or not torch.equal(u4096[edge].cpu(), want_u):
+        raise AssertionError(f"assetgen_bg at {NUM_ENVS} envs != plain on the chunk edges "
+                             f"(max err {perr})")
+    log("genassets", f"assetgen_bg at {NUM_ENVS} envs byte-equal on the {edge.numel()} "
+        f"envs at its chunk edges (envs {edge.tolist()}); max_abs_err {perr} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    log("genassets", f"assetgen_bg: 64 envs {k64:.4f} ms ({k64a:.4f}, {k64b:.4f}), "
+        f"plain torch on the card {p64:.1f} ms, bound {b64:.5f} ms ({b64_by}; "
+        f"{b64_work}); 4096 envs {k4096:.4f} ms, bound {b4096:.5f} ms ({b4096_by}; "
+        f"{b4096_work}); one env {k1:.4f} ms ({int(u64[0])} words), the longest "
+        f"path alone {k1_long:.4f} ms (the serial walk's latency) on {card}")
+    del vals, got_c, want_c, v4096, c4096
+
+    # render_frame on the painted canvas against its plain version
+    def game_of(name, centred):
+        game = make_game(name, GameOptions(distribution_mode=0, center_agent=centred,
+                                           use_generated_assets=True))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        game.fixed_asset_seed = 1234
+        return game
+
+    err = 0
+    timings = {}
+    arng = np.random.RandomState(1)
+    for name, cams in (("coinrun", (False, True)), ("fruitbot", (False,)),
+                       ("miner", (False,)), ("starpilot", (False,))):
+        game = game_of(name, False)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, big_seeds))
+        for _ in range(50):
+            acts = torch.as_tensor(arng.randint(0, 15, size=NUM_ENVS), device=dev)
+            s, _ = lifecycle.env_step(game, s, acts)
+        for centred in cams:
+            plan = rk.get_plan(game_of(name, centred))
+            x = rk.prep_frame(plan, s)
+            if not x.per_env_bg or x.bg_mode != (rk.BG_TILED if name == "fruitbot"
+                                                 else rk.BG_CROP):
+                raise AssertionError(f"{name}: not the painted canvas ({x.bg_mode})")
+            err = max(err, frame_check(x, f"painted {name} states (centred "
+                                       f"{centred})", rk, torch))
+            if name in ("coinrun", "fruitbot"):
+                what = f"{name}{' centred' if centred else ''}"
+                k_ms, p_ms, readings = time_frame(x, rk)
+                b_ms, b_by, b_work = frame_bound(x, rk, torch)
+                # the atlas background's kernel on the same states
+                std = make_game(name, GameOptions(distribution_mode=0, center_agent=centred))
+                xa = rk.prep_frame(rk.get_plan(std), s)
+                ka_ms, _, areadings = time_frame(xa, rk)
+                timings[what] = (k_ms, p_ms, b_ms, b_by)
+                log("genassets", f"render_frame on painted {what} at N={NUM_ENVS} "
+                    f"({int(s.ents.count.sum())} live slots): kernel {k_ms:.4f} ms, "
+                    f"plain torch {p_ms:.4f} ms ({readings}), bound {b_ms:.4f} ms "
+                    f"({b_by}; {b_work}); the atlas background on the same states "
+                    f"{ka_ms:.4f} ms ({areadings}) on {card}")
+        del s
+    log("genassets", f"render_frame byte-equal on the painted canvas: {NUM_ENVS} "
+        f"states after 50 steps each of coinrun (whole-world and centred cameras), "
+        f"fruitbot (tiled), miner and starpilot (cropped); max_abs_err {err}")
+
+    # the main paths: the gym3 surface with generated assets
+    launches, _, _ = gym_genassets("coinrun", dev, card, np, torch, baseline=True)
+    f_launches, _, _ = gym_genassets("fruitbot", dev, card, np, torch, timed=40)
+
+    keys = gpu_matches_cpu("maze", np, torch, states=True, use_generated_assets=True)
+    keys_c = gpu_matches_cpu("coinrun", np, torch, states=True, use_generated_assets=True)
+    checked = replay_on_card("maze_genassets", "conformance_opts")
+    log("genassets", f"64 envs x 50 steps, generated assets: GPU and CPU bit-equal "
+        f"(maze: obs, rewards, firsts, {', '.join(keys)}; coinrun centred: "
+        f"{', '.join(keys_c)}; bg_canvas among the leaves); maze_genassets replay "
+        f"exact ({checked} steps)")
+
+    return [
+        frame_row("coinrun_genassets", launches, err, *timings["coinrun centred"]),
+        frame_row("fruitbot_genassets", f_launches, err, *timings["fruitbot"]),
+        {
+            "name": "assetgen_bg",
+            "path": "coinrun_genassets",
+            "route": "cuda",
+            "source": "procgen_tpu_torch/csrc/assetgen_bg.cu",
+            "replaces": "procgen_tpu/render/assetgen.py:214",
+            "launches": launches["assetgen_bg"],
+            "max_abs_err": perr,
+            "ms": k64,
+            "plain_ms": p64,
+            "bound_ms": b64,
+            "bound_by": b64_by,
+            "library_ms": None,
+        },
+    ]
+
+
 def torch_ops(fn):
     """The torch operations ``fn()`` dispatches: a count, not a time."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -1125,7 +1454,7 @@ def torch_ops(fn):
     return c.n
 
 
-def step_split(carry, actions, name, torch):
+def step_split(carry, actions, name, torch, game=None):
     """Per-layer milliseconds per step over ``len(actions)`` steps, each
     layer fenced by a synchronise: step logic (``env_step`` alone), pool
     (the rest of the pooled step: splice, in-step resets, replenish),
@@ -1137,7 +1466,7 @@ def step_split(carry, actions, name, torch):
     from procgen_tpu_torch.render import render_kernel as rk
     from procgen_tpu_torch.render.renderer import post
 
-    game = _game(name, 0)
+    game = _game(name, 0) if game is None else game
     k = max(1, min(carry.valid.shape[0], 64))
     acc = {"logic": 0.0, "step": 0.0, "prep": 0.0, "kernel": 0.0, "post": 0.0}
     plan = rk.get_plan(game)

@@ -25,7 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from . import rng
+from . import assetgen, rng
 from .constants import (
     INVALID_OBJ, MAXVTHETA, MIXRATEROT, PLAYER, POS_EPS, SPACE, WALL_OBJ,
 )
@@ -220,6 +220,12 @@ class BasicAbstractGame:
 
     def asset_for_type(self, type_: int) -> list[str]:
         return []
+
+    def use_block_asset(self, type_: int) -> bool:
+        """Whether a generated sprite of ``type_`` is a rect resource (a
+        block) rather than a shape resource (basic-abstract-game.cpp:
+        101-110)."""
+        return False
 
     def asset_names(self, type_: int) -> list[str]:
         if self.options.use_generated_assets:
@@ -817,6 +823,13 @@ class BasicAbstractGame:
         return torch.tensor([aspect_for(n) for n in names] or [1.0],
                             dtype=f32, device=device)
 
+    def aspect_of(self, type_: int, theme: torch.Tensor) -> torch.Tensor:
+        """The aspect ratio of ``type_``'s theme ``theme`` (an int
+        tensor), f32; a theme past the table (a generated asset has one)
+        reads its last entry, as the JAX package's gather clamps."""
+        table = self.aspect_ratios(type_, theme.device)
+        return table[theme.long().clamp(0, table.shape[0] - 1)]
+
     def fit_aspect_ratio(self, s: BasicState, mask, ar) -> BasicState:
         """fit_aspect_ratio (cpp:1034-1045) of every slot where ``mask``
         ([N, cap]), ``ar`` being each slot's aspect ratio ([N, cap] f32):
@@ -848,7 +861,9 @@ class BasicAbstractGame:
         s, bgi = self.randn(s, self.num_backgrounds())
         s = s.replace(background_index=bgi)
         if self.uses_procgen_background:
-            raise NotImplementedError("procedural backgrounds not ported")
+            # AssetGen paints the background anew at every reset from the
+            # level rand_gen (cpp:776-782): its exact draws and its canvas
+            s = assetgen.consume_background_draws(self, s)
 
         ents = Entities.zeros(n, self.ENT_CAP, dev)
         if self.DECOR_CAP:

@@ -16,8 +16,10 @@ and those are glibc 2.36's (x86_64):
   with FMA and AVX2, in which the compiler fused every ``a * b + c`` of
   the polynomial and of the range reduction into one rounding; that build
   is the one matched here, each such fused step emulated exactly with
-  error-free transformations (``_fma``).  Inputs with ``|x| >= 120`` need
-  ``reduce_large``, which is not ported: they give NaN.
+  error-free transformations (``_fma``).  Inputs with ``|x| >= 120`` take
+  ``reduce_large``: 4/pi to 192 bits (``__inv_pio4``, derived here from pi
+  to 120 digits) times the 24-bit mantissa, its uint64 products and
+  shifts emulated in int64 halves of 32 bits.
 * ``atan2f``: fdlibm's ``e_atan2f.c`` and ``s_atanf.c`` (glibc's
   ``sysdeps/ieee754/flt-32``), in f32, unfused.
 
@@ -61,6 +63,36 @@ _S3 = float.fromhex("-0x1.994eb3774cf24p-13")
 _ABS_TINY = 0x39800000
 _ABS_120 = 0x42F00000
 _SPLIT = 134217729.0  # 2^27 + 1, Veltkamp's splitter for f64
+_ABS_INF = 0x7F800000
+_PI63 = float.fromhex("0x1.921FB54442D18p-62")  # pi/2 * 2^-62
+_M32 = 0xFFFFFFFF
+
+
+def _inv_pio4() -> tuple:
+    """glibc's ``__inv_pio4`` (sincosf_data.c): entry k holds the bits
+    8k + 1 .. 8k + 32 of 2/pi after the binary point, 8 new bits an entry.
+    Derived from pi to 120 digits by Machin's formula in ``decimal``."""
+    from decimal import Decimal, localcontext
+
+    with localcontext() as ctx:
+        ctx.prec = 120
+        eps = Decimal(10) ** -118
+
+        def atan_inv(n):  # arctan(1/n)
+            x = Decimal(1) / n
+            term, total, k = x, x, 1
+            while abs(term) > eps:
+                term = -term * x * x
+                total += term / (2 * k + 1)
+                k += 1
+            return total
+
+        pi = 16 * atan_inv(5) - 4 * atan_inv(239)
+        bits = int(Decimal(2) / pi * Decimal(2) ** 200)  # floor(2/pi * 2^200)
+    return tuple((bits >> (192 - 8 * k)) & _M32 for k in range(24))
+
+
+_INV_PIO4 = _inv_pio4()
 
 
 def _two_sum(a, b):
@@ -97,20 +129,53 @@ def _fma(a, b, c):
     return th + odd.view(f64)
 
 
+def _reduce_large(absw: torch.Tensor):
+    """sincosf.h ``reduce_large`` of the words of ``|y|`` (int32, sign
+    cleared): (x f64 in [-pi/4, pi/4], n int64 in 0..3) with |y| = n * pi/2
+    + x modulo 2 pi.  Each uint64 of the C is a pair of 32-bit halves in
+    int64 tensors; every product below is of a 31-bit and a 32-bit word,
+    so none leaves int64."""
+    w = absw.to(i64)
+    tab = torch.tensor(_INV_PIO4, dtype=i64, device=w.device)
+    k = (w >> 26) & 15
+    xi = ((w & 0xFFFFFF) | 0x800000) << ((w >> 23) & 7)
+    # res0 = (uint32)(xi * arr[0]) << 32 | (xi * arr[8]) >> 32
+    hi = (xi * tab[k]) & _M32
+    lo = (xi * tab[k + 8]) >> 32
+    # res0 += xi * arr[4]
+    r1 = xi * tab[k + 4]
+    lo = lo + (r1 & _M32)
+    hi = (hi + (r1 >> 32) + (lo >> 32)) & _M32
+    lo = lo & _M32
+    # n = (res0 + 2^61) >> 62; res0 -= n << 62
+    n = ((hi + (1 << 29)) & _M32) >> 30
+    hi = (hi - (n << 30)) & _M32
+    res0 = torch.where(hi >= 1 << 31, hi - (1 << 32), hi) * (1 << 32) + lo
+    return res0.to(f64) * _PI63, n
+
+
 def sincosf(y: torch.Tensor):
-    """glibc 2.36's ``(sinf(y), cosf(y))`` of an f32 tensor, NaN where
-    ``|y| >= 120``.  One reduction serves both: ``reduce_fast`` gives the
-    quadrant n and x - n * pi/2 (one fused step), and each function is the
-    sine polynomial of n's parity or the cosine one (table 1, the negated
-    coefficients, where n & 2).  Below 0.75, where glibc skips the
-    reduction, n is 0 and the reduction returns x itself, so one path
-    serves every input below 120."""
+    """glibc 2.36's ``(sinf(y), cosf(y))`` of an f32 tensor.  Below 120 one
+    reduction serves both: ``reduce_fast`` gives the quadrant n and x - n *
+    pi/2 (one fused step), and each function is the sine polynomial of n's
+    parity or the cosine one (table 1, the negated coefficients, where n &
+    2).  Below 0.75, where glibc skips the reduction, n is 0 and the
+    reduction returns x itself.  From 120 on, ``reduce_large`` reduces
+    |y|, n's parity picks the polynomial and n plus y's sign bit the signs
+    and the table.  Infinities and NaN give NaN."""
     y = y.to(f32)
-    absw = y.view(i32) & 0x7FFFFFFF
+    word = y.view(i32)
+    absw = word & 0x7FFFFFFF
     x = y.to(f64)
     n = ((x * _HPI_INV).to(i64) + 0x800000) >> 24
     xr = _fma(-n.to(f64), _HPI, x)
-    xs = torch.where(((n & 3) == 1) | ((n & 3) == 2), -xr, xr)
+    big = absw >= _ABS_120
+    x_large, n_large = _reduce_large(absw)
+    xr = torch.where(big, x_large, xr)
+    # q: the quadrant of the signs and the table; n: of the polynomial
+    q = torch.where(big, n_large + ((word >> 31) & 1).to(i64), n)
+    n = torch.where(big, n_large, n)
+    xs = torch.where(((q & 3) == 1) | ((q & 3) == 2), -xr, xr)
     x2 = xr * xr
     # sinf_poly, n even: the sine polynomial
     x3 = xs * x2
@@ -124,23 +189,23 @@ def sincosf(y: torch.Tensor):
     c1 = _fma(x2, _C[1], _C[0])
     x6 = x4 * x2
     cos_r = _fma(x6, c2, _fma(x4, _C[2], c1))
-    cos_r = torch.where((n & 2) != 0, -cos_r, cos_r)
+    cos_r = torch.where((q & 2) != 0, -cos_r, cos_r)
     odd = (n & 1) != 0
     sin = torch.where(odd, cos_r, sin_r).to(f32)
     cos = torch.where(odd, sin_r, cos_r).to(f32)
     sin = torch.where(absw < _ABS_TINY, y, sin)
     cos = torch.where(absw < _ABS_TINY, 1.0, cos)
-    big = absw >= _ABS_120
-    return torch.where(big, torch.nan, sin), torch.where(big, torch.nan, cos)
+    bad = absw >= _ABS_INF
+    return torch.where(bad, torch.nan, sin), torch.where(bad, torch.nan, cos)
 
 
 def sinf(x: torch.Tensor) -> torch.Tensor:
-    """glibc 2.36's ``sinf`` of an f32 tensor (NaN where |x| >= 120)."""
+    """glibc 2.36's ``sinf`` of an f32 tensor."""
     return sincosf(x)[0]
 
 
 def cosf(x: torch.Tensor) -> torch.Tensor:
-    """glibc 2.36's ``cosf`` of an f32 tensor (NaN where |x| >= 120)."""
+    """glibc 2.36's ``cosf`` of an f32 tensor."""
     return sincosf(x)[1]
 
 

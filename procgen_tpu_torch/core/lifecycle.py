@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from . import rng
+from . import assetgen, rng
 from .entities import Entities
 from .game import BasicAbstractGame, BasicState, tree_where
 
@@ -28,8 +28,6 @@ def initial_state(game: BasicAbstractGame, lsrg_seeds: torch.Tensor) -> BasicSta
     def full(v, dtype):
         return torch.full((n,), v, dtype=dtype, device=dev)
 
-    if game.uses_procgen_background:
-        raise NotImplementedError("procedural backgrounds not ported")
     return BasicState(
         level_seed_rand_gen=rng.seed(lsrg_seeds),
         rand_gen=rng.unseeded(n, dev),
@@ -65,7 +63,11 @@ def initial_state(game: BasicAbstractGame, lsrg_seeds: torch.Tensor) -> BasicSta
         visibility=full(game.visibility, f32),
         step_draws=full(0, i32),
         decor=Entities.zeros(n, game.DECOR_CAP, dev) if game.DECOR_CAP else None,
-        bg_canvas=None,
+        bg_canvas=(
+            torch.zeros((n, assetgen.CAN, assetgen.CAN, 3), dtype=torch.uint8,
+                        device=dev)
+            if game.uses_procgen_background else None
+        ),
         frame=(
             torch.zeros((n, 64, 64, 3), dtype=torch.uint8, device=dev)
             if game.static_prefix else None

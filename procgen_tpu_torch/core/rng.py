@@ -273,12 +273,11 @@ def commit(norm_state: MTState, draws: Draws) -> MTState:
     return norm_state.replace(mt=mt, pos=pos)
 
 
-def draw_n(state: MTState, n_max: int, n=None):
-    """The next ``n_max`` tempered words per env (``[N_env, n_max]``);
-    advances each stream by ``n`` (``[N_env]``, <= n_max; default n_max).
-
-    Same twist schedule as the JAX package's draw_block/advance_block:
-    ceil(n_max/624)+1 twists past the (normalised) current block."""
+def draw_block(state: MTState, n_max: int):
+    """The next ``n_max`` tempered words per env (``[N_env, n_max]``)
+    WITHOUT advancing; pass ``ctx`` to ``advance_block`` with the count
+    each env consumed.  Pays ceil(n_max/624)+1 twists past the
+    (normalised) current block, the JAX package's schedule."""
     at_boundary = state.pos >= N
     mt = torch.where(at_boundary[:, None], twist(state.mt), state.mt)
     pos = torch.where(at_boundary, torch.zeros_like(state.pos), state.pos)
@@ -292,15 +291,29 @@ def draw_n(state: MTState, n_max: int, n=None):
     vals = all_out.gather(
         1, start[:, None] + torch.arange(n_max, device=mt.device)
     )
-    if n is None:
-        n = torch.full_like(pos, n_max)
+    return vals, (torch.stack(blocks, dim=1), pos, k_blocks)
+
+
+def advance_block(state: MTState, ctx, n) -> MTState:
+    """Advance each stream by ``n`` (``[N_env]``) words drawn from
+    ``draw_block``'s window."""
+    stack, pos, k_blocks = ctx  # stack: [N_env, k_blocks+1, 624]
     new_abs = pos + torch.as_tensor(n, dtype=torch.int32, device=pos.device)
     blk = torch.div(new_abs, N, rounding_mode="floor")
     new_pos = torch.remainder(new_abs, N)
-    stack = torch.stack(blocks, dim=1)  # [N_env, k_blocks+1, 624]
     b = blk.long().clamp(0, k_blocks)
-    new_mt = stack[torch.arange(stack.shape[0], device=mt.device), b]
-    return state.replace(mt=new_mt, pos=new_pos.to(torch.int32)), vals
+    new_mt = stack[torch.arange(stack.shape[0], device=stack.device), b]
+    return state.replace(mt=new_mt, pos=new_pos.to(torch.int32))
+
+
+def draw_n(state: MTState, n_max: int, n=None):
+    """The next ``n_max`` tempered words per env (``[N_env, n_max]``);
+    advances each stream by ``n`` (``[N_env]``, <= n_max; default
+    n_max): ``draw_block`` then ``advance_block``."""
+    vals, ctx = draw_block(state, n_max)
+    if n is None:
+        n = torch.full_like(state.pos, n_max)
+    return advance_block(state, ctx, n), vals
 
 
 # ---------------------------------------------------------------------------

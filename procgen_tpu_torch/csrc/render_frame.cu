@@ -1,10 +1,14 @@
 // The whole 64x64 frame of a game that is not static, for sm_90a.
 //
 // Replaces the Pallas TPU kernel procgen_tpu/render/pallas_kernel.py
-// (_render_env inside the pl.pallas_call at :1136) on its non-static path
-// with a fixed background image, which miner, coinrun, fruitbot and
-// starpilot take, under the static camera or the agent-centred one.  Per
-// pixel, in the QPainter pipeline's order:
+// (_render_env inside the pl.pallas_call at :1136) on its non-static path,
+// which miner, coinrun, fruitbot and starpilot take, under the static
+// camera or the agent-centred one, with a fixed background image or, under
+// generated assets, each env's own painted canvas (:679-680): then the
+// "atlas" is the envs' [N, 128, 128, 3] uint8 canvases and each env's
+// SI_BGROW is its own index, a u8 texel is exact in the Pallas kernel's
+// bf16, and the canvas is cropped with aspect 1 or tiled, never scrolled.
+// Per pixel, in the QPainter pipeline's order:
 //   K1d  the env's background image (else 0), in one of three modes per
 //        launch: the standard crop with the random x offset (:656-666);
 //        fruitbot's vertical tiling (:646-655): row frac((sy - mr_y) /

@@ -98,6 +98,9 @@ class Coinrun(BasicAbstractGame):
 
         return PLATFORM_BACKGROUNDS
 
+    def use_block_asset(self, type_):
+        return type_ in (WALL_MID, WALL_TOP)
+
     def asset_for_type(self, type_):
         # coinrun.cpp:75-127
         if type_ == PLAYER:

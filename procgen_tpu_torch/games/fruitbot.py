@@ -99,6 +99,9 @@ class Fruitbot(BasicAbstractGame):
 
         return TOPDOWN_BACKGROUNDS
 
+    def use_block_asset(self, type_):
+        return type_ in (BARRIER, LOCKED_DOOR, PRESENT)
+
     def asset_for_type(self, type_):
         # fruitbot.cpp:46-76
         if type_ == PLAYER:
@@ -381,10 +384,9 @@ class Fruitbot(BasicAbstractGame):
         d, norm = rng.peek_block(s.rand_gen, e.cap)
         th = rng._randn_from(d.peek_at(k.clamp_min(0)), group_size)
         d = d.replace(cursor=is_obj.sum(dim=1, dtype=i32))
-        tc = th.clamp(0, 5).long()
-        ar = torch.where(e.type == GOOD_OBJ,
-                         self.aspect_ratios(GOOD_OBJ, dev)[tc],
-                         self.aspect_ratios(BAD_OBJ, dev)[tc])
+        tc = th.clamp(0, 5)
+        ar = torch.where(e.type == GOOD_OBJ, self.aspect_of(GOOD_OBJ, tc),
+                         self.aspect_of(BAD_OBJ, tc))
         s = s.replace(ents=e.replace(image_theme=torch.where(is_obj, th, e.image_theme)))
         s = self.fit_aspect_ratio(s, is_obj, ar)
         return s.replace(

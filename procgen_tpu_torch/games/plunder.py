@@ -258,12 +258,11 @@ class Plunder(BasicAbstractGame):
         legend_r = 2.0
         s = s.replace(ents=s.ents.push(default_fields(
             legend_r, legend_r, 0.0, 0.0, legend_r, legend_r, TARGET_BACKGROUND)))
-        ship_ar = self.aspect_ratios(SHIP, dev)
         lf = default_fields(legend_r, legend_r, 0.0, 0.0, r_scale * 1.5,
                             r_scale * 1.5, TARGET_LEGEND)
         lf["image_theme"] = perm[:, 0]
         lf["image_type"] = SHIP
-        lf["ry"] = rdiv(r_scale * 1.5, ship_ar[perm[:, 0].clamp(0, 5).long()])
+        lf["ry"] = rdiv(r_scale * 1.5, self.aspect_of(SHIP, perm[:, 0].clamp(0, 5)))
         lf["rotation"] = PI / 2
         s = s.replace(ents=s.ents.push(lf))
 
@@ -271,7 +270,7 @@ class Plunder(BasicAbstractGame):
         # still takes a word
         d, th0 = d.randn(1)
         agent_theme = perm.gather(1, (th0 + 1).clamp(0, 5).long()[:, None])[:, 0]
-        ar = ship_ar[agent_theme.clamp(0, 5).long()]
+        ar = self.aspect_of(SHIP, agent_theme.clamp(0, 5))
         s = s.replace(ents=s.ents.set_fields(
             0, image_type=SHIP, rx=r_scale, rotation=-PI / 2,
             image_theme=agent_theme, ry=rdiv(r_scale, ar)))
@@ -331,7 +330,6 @@ class Plunder(BasicAbstractGame):
     def game_step(self, s: BasicState, d):
         s, d = self.game_step_base(s, d)
         s = s.replace(game=s.game.replace(juice_left=s.game.juice_left - 0.0015))
-        dev = s.reward.device
 
         # a lane ship (plunder.cpp:196-216), unless an entity or an
         # explosion is in its way
@@ -346,7 +344,7 @@ class Plunder(BasicAbstractGame):
         moves_right = g.lane_directions.gather(1, lane_i)[:, 0]
         ent_vx = g.lane_vels.gather(1, lane_i)[:, 0] * torch.where(moves_right, 1.0, -1.0)
         theme = g.image_permutation.gather(1, th0.clamp(0, 5).long()[:, None])[:, 0]
-        ar = self.aspect_ratios(SHIP, dev)[theme.clamp(0, 5).long()]
+        ar = self.aspect_of(SHIP, theme.clamp(0, 5))
         x = torch.where(moves_right, -ent_r, 20.0 + ent_r)
         f = default_fields(x, ent_y, ent_vx, 0.0, ent_r, rdiv(ent_r, ar), SHIP)
         f["image_theme"] = theme

@@ -392,7 +392,7 @@ class Starpilot(BasicAbstractGame):
             torch.where(c(type_ == METEOR), rng._randn_from(xraw, nth[METEOR]),
                         torch.where(c(is_turret), rng._randn_from(xraw, nth[TURRET]),
                                     torch.where(c(is_flyer), c(fth), 0))))
-        ar = self.aspect_ratios(TURRET, dev)[theme.clamp(0, 1).long()]
+        ar = self.aspect_of(TURRET, theme.clamp(0, 1))
         rot = torch.where(vx > 0, -1.0, 1.0) * _f32(PI) / 2
         rec = {
             "x": torch.where(spawn_right, c(16.0 + r), c(-r)), "y": c(ypos),
@@ -484,7 +484,7 @@ class Starpilot(BasicAbstractGame):
         # the finish line at t=500 (starpilot.cpp:416-424)
         at_end = s.cur_time == SHOOTER_WIN_TIME
         d, fth = d.randn_if(at_end, self.num_themes(FINISH_LINE))
-        fin_ar = self.aspect_ratios(FINISH_LINE, dev)[fth.clamp(0, 3).long()]
+        fin_ar = self.aspect_of(FINISH_LINE, fth.clamp(0, 3))
         rx = 8.0 * fin_ar  # match_aspect_ratio(match_width=False)
         ff = default_fields(16.0 + rx, 8.0, -_f32(self.hp_slow_v * V_SCALE), 0.0,
                             rx, 8.0, FINISH_LINE)

@@ -42,6 +42,7 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     "render_suffix": [_P] * 8 + [_I] * 11 + [_P],
     "render_frame": [_P] * 12 + [_I] * 21 + [_P],
+    "assetgen_bg": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _LIB = None

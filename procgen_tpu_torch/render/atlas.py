@@ -16,6 +16,7 @@ import torch
 
 from ..core.constants import MAX_ASSETS
 from . import assets as asset_tables
+from .assetgen_host import bake_generated_asset
 from .assets import monochrome_color
 
 
@@ -68,24 +69,33 @@ class GridAtlas:
     """Pre-scaled tile atlas + (img, theme) -> row tables."""
 
     def __init__(self, game, tile_px: int):
-        if game.options.use_generated_assets:
-            raise NotImplementedError(
-                "use_generated_assets is not ported yet (ROADMAP Queue 1)"
-            )
         self.tile_px = tile_px
         entries = []  # (img_type, theme, pixels[s,s,4])
-        for type_ in range(MAX_ASSETS):
-            names = game.asset_names(type_)
-            for theme, name in enumerate(names):
-                raw = _load_image(name)
-                if raw is None:
-                    r, g, b = monochrome_color(type_ % 64, theme)
-                    pix = np.zeros((tile_px, tile_px, 4), np.uint8)
-                    pix[..., 0], pix[..., 1], pix[..., 2] = r, g, b
-                    pix[..., 3] = 255
-                else:
-                    pix = _resize(raw, tile_px, tile_px)
-                entries.append((type_, theme, pix))
+        if game.options.use_generated_assets:
+            # every drawable type gets one generated theme (basic-abstract-
+            # game.cpp:93-110; procgen_tpu/render/atlas.py:93-111)
+            for type_ in range(MAX_ASSETS):
+                if not (game.asset_for_type(type_)
+                        or game.RESERVED_ASSETS.get(type_)):
+                    continue
+                raw = bake_generated_asset(
+                    int(game.fixed_asset_seed), type_,
+                    bool(game.use_block_asset(type_)),
+                )
+                entries.append((type_, 0, _resize(raw, tile_px, tile_px)))
+        else:
+            for type_ in range(MAX_ASSETS):
+                names = game.asset_names(type_)
+                for theme, name in enumerate(names):
+                    raw = _load_image(name)
+                    if raw is None:
+                        r, g, b = monochrome_color(type_ % 64, theme)
+                        pix = np.zeros((tile_px, tile_px, 4), np.uint8)
+                        pix[..., 0], pix[..., 1], pix[..., 2] = r, g, b
+                        pix[..., 3] = 255
+                    else:
+                        pix = _resize(raw, tile_px, tile_px)
+                    entries.append((type_, theme, pix))
 
         self.entries = [(t, th) for t, th, _ in entries]
         n = len(entries)
@@ -222,14 +232,16 @@ _CACHE: dict = {}
 def get_atlases(game, res: int):
     """(GridAtlas, BackgroundAtlas, entity GridAtlas) for a game at a given
     resolution; cached.  Raises when the asset artifact is missing."""
-    # the tile size follows the camera, so center_agent is part of the key
+    # the tile size follows the camera, so center_agent is part of the
+    # key; generated sprites follow the asset seed
     key = (
         game.name, game.options.distribution_mode, res, id(type(game)),
         game.options.use_monochrome_assets, bool(game.center_agent),
+        game.options.use_generated_assets and int(game.fixed_asset_seed),
     )
     if key in _CACHE:
         return _CACHE[key]
-    if not asset_tables.assets_available():
+    if not (asset_tables.assets_available() or game.options.use_generated_assets):
         raise RuntimeError(
             "no assets: the baked artifact procgen_tpu/data/assets.npz "
             "is missing (tools/bake_assets.py)"
@@ -247,11 +259,10 @@ def get_atlases(game, res: int):
         grid_atlas = GridAtlas(game, tile_px)
         ent_atlas = GridAtlas(game, max(16, res // 2))
     if game.uses_procgen_background:
-        raise NotImplementedError(
-            "procedural backgrounds are not ported yet (ROADMAP Queue 1)"
-        )
-    bg_atlas = BackgroundAtlas(game.background_names(), res)
-    if not bg_atlas.loaded:
-        bg_atlas = None
+        bg_atlas = None  # each env's painted canvas, state.bg_canvas
+    else:
+        bg_atlas = BackgroundAtlas(game.background_names(), res)
+        if not bg_atlas.loaded:
+            bg_atlas = None
     _CACHE[key] = (grid_atlas, bg_atlas, ent_atlas)
     return _CACHE[key]

@@ -15,8 +15,9 @@ The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
   fruitbot and starpilot take, under the static camera or the
   agent-centred one.  ``render_frame`` launches ``csrc/render_frame.cu``;
   it adds the Pallas kernel's K1d (the background: the standard crop,
-  fruitbot's vertical tiling or starpilot's time-scrolled tiles), the z=-1
-  composite, K1e (grid tiles from the camera's cell
+  fruitbot's vertical tiling or starpilot's time-scrolled tiles of a fixed
+  image, or under generated assets the env's own painted canvas, cropped
+  or tiled), the z=-1 composite, K1e (grid tiles from the camera's cell
   window), K1f (colored cells) and the decor pool, painted into its own
   canvases and composited after the entity pool's at each z.  Each pool is
   walked to its live count; the TPU kernel's grouped pass (K2) paints the
@@ -41,6 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.assetgen import CAN
 from ..core.constants import SPACE
 from .atlas import ROT_OVERHANG, get_atlases
 from .renderer import (
@@ -118,10 +120,16 @@ class RenderPlan:
             # rows below this one are tiles that cover their cell
             self.grid_opaque = grid_atlas.transparent_row
             self.arrays["grid"] = grid_atlas.rows  # [n_rows, sA, sA, 4] u8
-            use_bg = bg_atlas is not None and game.options.use_backgrounds
+            # under generated assets each env paints its own canvas
+            # (state.bg_canvas): square, cropped or tiled, never scrolled
+            # (pallas_kernel.py:632, bg_scroll and not bg_procgen)
+            self.procgen_bg = bool(game.uses_procgen_background)
+            use_bg = ((bg_atlas is not None or self.procgen_bg)
+                      and game.options.use_backgrounds)
             self.bg_mode = (BG_NONE if not use_bg else
-                            BG_SCROLL if game.PALLAS_BG == "scroll" else
-                            BG_TILED if game.bg_tile_ratio < 0 else BG_CROP)
+                            BG_TILED if game.bg_tile_ratio < 0 else
+                            BG_CROP if self.procgen_bg else
+                            BG_SCROLL if game.PALLAS_BG == "scroll" else BG_CROP)
             if bg_atlas is not None:
                 self.arrays["bg"] = bg_atlas.pixels  # [nb, BH, BW, 3] u8
                 self.bg_aspects = np.asarray(bg_atlas.aspects, np.float32)
@@ -152,7 +160,8 @@ _PLANS: dict = {}
 
 def get_plan(game, res: int = RES) -> RenderPlan:
     key = (game.name, game.options.distribution_mode, res, id(type(game)),
-           game.options.use_monochrome_assets, bool(game.center_agent))
+           game.options.use_monochrome_assets, bool(game.center_agent),
+           game.options.use_generated_assets and int(game.fixed_asset_seed))
     if key not in _PLANS:
         _PLANS[key] = RenderPlan(game, res)
     return _PLANS[key]
@@ -169,10 +178,11 @@ def supports(game, res: int = RES) -> bool:
     the entity pool and the decor pool, if any, or the whole frame with a
     fixed background image, cropped (``bg_tile_ratio >= 0``), tiled
     vertically (``bg_tile_ratio < 0``, fruitbot) or scrolled with time
-    (``PALLAS_BG == "scroll"`` with starpilot's ``paint_background``), z
+    (``PALLAS_BG == "scroll"`` with starpilot's ``paint_background``), or
+    each env's painted canvas under generated assets, cropped or tiled, z
     in (-1, 0, 1) in both pools, under the static camera or the
-    agent-centred one.  Procedural backgrounds, monochrome sprites and
-    memory mode's rules (ROADMAP) are not ported."""
+    agent-centred one.  Monochrome sprites and memory mode's rules
+    (ROADMAP) are not ported."""
     from ..core.constants import MEMORY_MODE
     from ..core.game import BasicAbstractGame
 
@@ -195,7 +205,6 @@ def supports(game, res: int = RES) -> bool:
     return (
         not getattr(game, "DYNAMIC_VISIBILITY", False)
         and game.PALLAS_BG in ("standard", "scroll")
-        and not game.uses_procgen_background
         and all(len(set(lv)) == len(lv) and set(lv) <= {-1, 0, 1}
                 for lv in (z, dz))
         and 1 <= len(z) and len(z) + len(dz) <= MAX_CANVASES
@@ -361,10 +370,11 @@ class FrameInputs:
     colored-cell planes r, g, b, valid, inset; ``ent_f`` / ``ent_i`` and
     ``dec_f`` / ``dec_i``, the sprite slots of the entity and decor pools
     ([N, 0, ...] without a decor pool).  Shared: the atlases, uint8
-    ``grid_atlas`` [n_rows, sA, sA, 4], ``bg_atlas`` [nb, BH, BW, 3] and
-    ``ent_atlas`` [2*n1e, S, S, 4]; ``z_slots`` / ``dz_slots``, each
-    pool's canvas index of z = -1, 0, 1 (-1 for none) among its ``nz`` /
-    ``nzd`` canvases; ``grid_opaque``, the first grid row that covers
+    ``grid_atlas`` [n_rows, sA, sA, 4], ``bg_atlas`` [nb, BH, BW, 3] (with
+    ``per_env_bg``, the envs' painted canvases [N, 128, 128, 3], each env's
+    ``SI_BGROW`` its own index) and ``ent_atlas`` [2*n1e, S, S, 4];
+    ``z_slots`` / ``dz_slots``, each pool's canvas index of z = -1, 0, 1
+    (-1 for none) among its ``nz`` / ``nzd`` canvases; ``grid_opaque``, the first grid row that covers
     nothing; ``bg_mode``, K1d's mode (``BG_NONE``, ``BG_CROP``,
     ``BG_TILED`` or ``BG_SCROLL``)."""
 
@@ -385,6 +395,7 @@ class FrameInputs:
     nzd: int
     grid_opaque: int
     bg_mode: int
+    per_env_bg: bool = False
 
     def to(self, device) -> "FrameInputs":
         return dataclasses.replace(self, **{
@@ -418,16 +429,24 @@ def prep_frame(plan: RenderPlan, s) -> FrameInputs:
         mr_y = (vis - h) * unit + y_off
         mr_w = w * unit
         mr_h = h * unit
-        bi = s.background_index.clamp(0, plan.bg_aspects.shape[0] - 1)
+        if plan.procgen_bg:
+            # the env's own canvas, aspect 1 (:279-287)
+            bi = torch.arange(n, dtype=i32, device=dev)
+            bg_ar = torch.ones((n,), dtype=f32, device=dev)
+        else:
+            bi = s.background_index.clamp(0, plan.bg_aspects.shape[0] - 1)
+            bg_ar = torch.as_tensor(plan.bg_aspects, device=dev)[bi.long()]
         sf[:, SF_MRX], sf[:, SF_MRY] = mr_x, mr_y
         sf[:, SF_MRW], sf[:, SF_MRH] = mr_w, mr_h
         if plan.bg_mode == BG_TILED:
+            # the painted canvas tiles too, as the XLA renderer tiles it;
+            # the Pallas kernel's prep leaves the tile height unset there
+            # (:279 before :292; ROADMAP Queue 3)
             sf[:, SF_TILEH] = tile_height(mr_w, mr_h, -game.bg_tile_ratio)
         elif plan.bg_mode == BG_SCROLL:
             # the scroll offset (:287-291), as XLA computes it
             sf[:, SF_BGRX] = game.background_offset(s, plan.res)
         else:
-            bg_ar = torch.as_tensor(plan.bg_aspects, device=dev)[bi.long()]
             world_ar = w / h
             extra_w = bg_ar - world_ar
             offx = s.bg_pct_x * extra_w
@@ -454,14 +473,16 @@ def prep_frame(plan: RenderPlan, s) -> FrameInputs:
 
     ent_f, ent_i = prep(plan, s, cam)
     dec_f, dec_i = prep_decor(plan, s, cam)
+    per_env_bg = plan.procgen_bg and plan.bg_mode != BG_NONE
     return FrameInputs(
         sf=sf, si=si, gtab=gtab.contiguous(), cell5=cell5.contiguous(),
         ent_f=ent_f, ent_i=ent_i, dec_f=dec_f, dec_i=dec_i,
-        grid_atlas=plan.on("grid", dev), bg_atlas=plan.on("bg", dev),
+        grid_atlas=plan.on("grid", dev),
+        bg_atlas=s.bg_canvas.contiguous() if per_env_bg else plan.on("bg", dev),
         ent_atlas=plan.atlas(dev), z_slots=plan.z_slots,
         nz=len(plan.z_levels), dz_slots=plan.dz_slots,
         nzd=len(plan.dz_levels), grid_opaque=plan.grid_opaque,
-        bg_mode=plan.bg_mode,
+        bg_mode=plan.bg_mode, per_env_bg=per_env_bg,
     )
 
 
@@ -667,11 +688,12 @@ def grid_lookup(x: FrameInputs):
 
 def background_lookup(x: FrameInputs):
     """K1d's per-pixel indices, scrolled (pallas_kernel.py:632-645), tiled
-    (:646-655) or cropped (:656-666).  Returns ``bi`` [N], the clamped
-    background image; ``row_idx`` and ``in_y`` [N, 64], the image row of
-    each pixel row and whether the row lies in the world rect (every row,
-    scrolled); ``col_idx`` and ``in_x`` [N, 64], the same for the pixel
-    columns."""
+    (:646-655) or cropped (:656-666), of a fixed image or of the env's
+    painted canvas (:679-680).  Returns ``bi`` [N], the clamped background
+    image (the env's own index for a painted canvas); ``row_idx`` and
+    ``in_y`` [N, 64], the image row of each pixel row and whether the row
+    lies in the world rect (every row, scrolled); ``col_idx`` and ``in_x``
+    [N, 64], the same for the pixel columns."""
     sf = x.sf
     n = sf.shape[0]
     BH, BW = x.bg_atlas.shape[1], x.bg_atlas.shape[2]
@@ -780,7 +802,9 @@ def render_frame(x: FrameInputs):
         ("dec_f", x.dec_f, f32, (n, dcap, EF_N)),
         ("dec_i", x.dec_i, i32, (n, dcap, EI_N)),
         ("grid_atlas", ga, u8, (ga.shape[0], ga.shape[1], ga.shape[1], 4)),
-        ("bg_atlas", bg, u8, (bg.shape[0], bg.shape[1], bg.shape[2], 3)),
+        # a painted canvas per env, or a shared atlas of images
+        ("bg_atlas", bg, u8, (n, CAN, CAN, 3) if x.per_env_bg
+         else (bg.shape[0], bg.shape[1], bg.shape[2], 3)),
         ("ent_atlas", ea, u8, (ea.shape[0], ea.shape[1], ea.shape[1], 4)),
     ])
     out = torch.empty((n, RES, RES, 3), dtype=u8, device=dev)

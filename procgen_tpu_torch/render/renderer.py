@@ -92,7 +92,15 @@ def render_obs(game, s, res: int = 64, base=None, prefix_only=False):
     else:
         obs = torch.zeros((n, res, res, 3), dtype=i32, device=dev)
         use_bg = game.options.use_backgrounds and bg_atlas is not None
-        if use_bg and type(game).paint_background is _base_paint_background():
+        if game.options.use_backgrounds and game.uses_procgen_background:
+            # each env's painted canvas, square like the reference's
+            # 500x500 image: aspect 1, cropped or tiled; no game's own
+            # background pass (procgen_tpu/render/renderer.py:117-122)
+            obs = _paint_background(
+                game, s, obs, sx, sy, res, unit, vis, s.bg_canvas,
+                torch.arange(n, device=dev), torch.ones((n,), dtype=f32, device=dev),
+            )
+        elif use_bg and type(game).paint_background is _base_paint_background():
             pix, aspects = bg_atlas.tensors(dev)
             bi = s.background_index.long().clamp(0, pix.shape[0] - 1)
             obs = _paint_background(
@@ -226,7 +234,8 @@ def _paint_background(game, s, obs, sx, sy, res, unit, vis, pix, bi, bg_ar):
     """draw_background (cpp:988-1016): the aspect-preserving crop with the
     random x offset, or, for a negative ``bg_tile_ratio``, the image tiled
     vertically over the world (tile_image, cpp:849-878).  ``pix`` is the
-    atlas [nb, BH, BW, 3] u8, ``bi`` the per-env image index."""
+    atlas [nb, BH, BW, 3] u8, or the envs' painted canvases [N, 128, 128,
+    3] u8, ``bi`` the per-env image index."""
     BH, BW = pix.shape[1], pix.shape[2]
     W = s.main_width.to(f32)
     H = s.main_height.to(f32)

@@ -586,3 +586,95 @@ def test_cuda_suffix_kernel_decor_matches_plain_version():
         torch.cuda.synchronize()
         assert rk.LAUNCHES["render_suffix"] == before + 1
         assert torch.equal(got, want)
+
+
+# -- generated assets: the painter and the painted canvas (K1d) ---------------
+
+
+def _genassets(game_cls, mode=0, centred=False):
+    game = game_cls(GameOptions(distribution_mode=mode, center_agent=centred,
+                                use_generated_assets=True))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    game.fixed_asset_seed = 4242
+    return game
+
+
+def test_painter_bad_inputs_raise():
+    """The painter's wrapper takes int64 (N, N_MAX) CUDA words only."""
+    from procgen_tpu_torch.core import assetgen
+
+    vals = torch.as_tensor(assetgen.longest_path_words(0))[None]
+    before = dict(assetgen.LAUNCHES)
+    for bad in (vals, vals[:, :100], vals.to(torch.int32)):
+        with pytest.raises(ValueError):
+            assetgen.generate_background(bad)
+    assert assetgen.LAUNCHES == before
+
+
+def test_painted_canvas_frame_inputs():
+    """Under generated assets the whole-frame path reads each env's own
+    canvas (``SI_BGROW`` its index), cropped or tiled, and the wrapper
+    states the [N, 128, 128, 3] shape it takes."""
+    seeds = torch.arange(3, dtype=torch.int64) * 31 + 1
+    for cls, mode in ((Coinrun, rk.BG_CROP), (Fruitbot, rk.BG_TILED),
+                      (Starpilot, rk.BG_CROP)):
+        game = _genassets(cls)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        x = rk.prep_frame(rk.get_plan(game), s)
+        assert x.per_env_bg and x.bg_mode == mode and x.bg_atlas.shape == (3, 128, 128, 3)
+        assert x.si[:, rk.SI_BGROW].tolist() == [0, 1, 2]
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            rk.render_frame(x)
+        with pytest.raises(ValueError, match="bg_atlas"):
+            rk.render_frame(dataclasses.replace(x, bg_atlas=x.bg_atlas[:2].contiguous()))
+
+
+@pytest.mark.cuda
+def test_cuda_painter_matches_plain_version():
+    """``csrc/assetgen_bg.cu`` against the plain version: the draw blocks
+    of 64 seeded streams (and one stream twice, in two chunks' worth of
+    envs) and the longest path, byte-equal canvases and equal words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from procgen_tpu_torch.core import rng
+    from procgen_tpu_torch.core import assetgen
+
+    dev = torch.device("cuda")
+    vals, _ = rng.draw_block(rng.seed(torch.arange(64, dtype=torch.int64) * 104729 + 3),
+                             assetgen.N_MAX)
+    vals = torch.cat([vals, torch.as_tensor(assetgen.longest_path_words(2))[None]])
+    want_c, want_u = assetgen.generate_background_reference(vals)
+    before = assetgen.LAUNCHES["assetgen_bg"]
+    got_c, got_u = assetgen.generate_background(vals.to(dev))
+    torch.cuda.synchronize()
+    assert assetgen.LAUNCHES["assetgen_bg"] == before + 1
+    assert torch.equal(got_u.cpu(), want_u) and torch.equal(got_c.cpu(), want_c)
+    big = vals[:1].repeat(assetgen.CHUNK + 5, 1).to(dev)
+    c2, u2 = assetgen.generate_background(big)
+    torch.cuda.synchronize()
+    assert (c2 == got_c[:1]).all() and (u2 == got_u[:1]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_frame_kernel_painted_canvas_matches_plain_version():
+    """``render_frame`` on the painted canvas: coinrun under both cameras
+    (cropped, a world that is not square), fruitbot (tiled), miner and
+    starpilot (cropped, not scrolled), after 30 random steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    seeds = torch.arange(64, dtype=torch.int64, device=dev) * 7919 + 11
+    for cls, centred in ((Coinrun, False), (Coinrun, True), (Fruitbot, False),
+                         (Miner, False), (Starpilot, True)):
+        game = _genassets(cls, centred=centred)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        for a in np.random.RandomState(1).randint(0, 15, (30, 64)):
+            s, _ = lifecycle.env_step(game, s, torch.as_tensor(a, device=dev))
+        x = rk.prep_frame(rk.get_plan(game), s)
+        assert x.per_env_bg
+        before = rk.LAUNCHES["render_frame"]
+        got = rk.render_frame(x)
+        want = rk.render_frame_reference(x)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["render_frame"] == before + 1
+        assert torch.equal(got, want)

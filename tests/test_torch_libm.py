@@ -12,6 +12,9 @@ also what the C++ reference calls.  ``libm.cosf``, ``libm.sinf`` and
 * on the edges of every binade below 120 (2^k and the float below it,
   both signs), the polynomial's edges (0.75, pi/4, 2^-12), +-0, and the
   player's fire angles 0 and pi;
+* from 120 on (glibc's ``reduce_large``): 262,144 floats log-uniform from
+  120 to 2^127 of both signs, the edges of every binade from 2^7 up, the
+  largest float, and +-inf and NaN (NaN out);
 * ``atan2f`` on 1,048,576 pairs (uniform in [-16, 16] and random bit
   patterns), the axes and signed zeros, ``x = 1``, infinities, NaN, and
   ratios beyond 2^60 and below 2^-60 on both sides.
@@ -173,10 +176,40 @@ def test_atan2_special_cases():
     assert np.signbit(got[2]) and not np.signbit(got[0])
 
 
+def _large():
+    """Floats from 120 to 2^127, log-uniform, both signs, and the edges of
+    every binade from 2^7 up to the largest float."""
+    rng = np.random.RandomState(5)
+    e = rng.uniform(np.log2(120.0), 127.99, M // 4)
+    xs = (np.exp2(e) * rng.choice([-1.0, 1.0], e.size)).astype(F32)
+    tops = np.ldexp(np.ones(121), np.arange(7, 128)).astype(F32)
+    edges = np.concatenate([tops, np.nextafter(tops, F32(np.inf)),
+                            np.array([120.0, np.finfo(F32).max], F32)])
+    return np.concatenate([xs, edges, -edges])
+
+
+@pytest.mark.parametrize("name", ["cosf", "sinf"])
+def test_large_arguments_match_glibc_and_jax(name, jax_trig):
+    xs = _large()
+    got = getattr(libm, name)(torch.from_numpy(xs)).numpy()
+    assert not np.isnan(got).any()
+    bad = _same_bits(got, _oracle1(name, xs))
+    assert bad.size == 0, (xs[bad[:5]], got[bad[:5]])
+    jfn = jax_trig[0] if name == "cosf" else jax_trig[1]
+    bad = _same_bits(got, np.asarray(jfn(jnp.asarray(xs))))
+    assert bad.size == 0, (xs[bad[:5]], got[bad[:5]])
+
+
 def test_large_arguments_are_not_ported():
-    """|x| >= 120 needs glibc's reduce_large, which is not ported: NaN."""
-    xs = torch.tensor([120.0, -500.0, 1e30, np.inf], dtype=torch.float32)
-    assert torch.isnan(libm.cosf(xs)).all() and torch.isnan(libm.sinf(xs)).all()
+    """|x| >= 120 goes through glibc's reduce_large, ported since the
+    generated-assets slice: finite inputs give glibc's bits, one by one
+    around the switch at 120, and only infinities and NaN give NaN."""
+    xs = np.array([120.0, -120.0, np.nextafter(F32(120.0), F32(0)), -500.0, 1e30,
+                   -3.4e38, np.inf, -np.inf, np.nan], F32)
+    for name in ("cosf", "sinf"):
+        got = getattr(libm, name)(torch.from_numpy(xs)).numpy()
+        assert _same_bits(got, _oracle1(name, xs)).size == 0
+        assert np.isnan(got[-3:]).all() and not np.isnan(got[:-3]).any()
 
 
 def test_no_fused_or_library_trig_on_the_path():

@@ -2,14 +2,14 @@
 
 The recordings in tests/data/conformance_opts/ come from the C++ engine
 under non-default options (restricted themes, sequential levels, no
-backgrounds with velocity info) and as adversarial stress runs (coinrun's
+backgrounds with velocity info, generated assets) and as adversarial stress runs (coinrun's
 crate push chains, plunder's bullet volleys).  Each one of a ported game
 replays exactly through ``procgen_tpu_torch.conformance.replay`` on the
 CPU: rewards, firsts, level seeds, the previous level's seed and
 completion, and maze's latents at every step.  The two 500-step, 8-env
 stress runs are marked ``slow``, as in tests/test_conformance_options.py.
-The option recordings that need unported code (monochrome sprites,
-generated assets, the other games) come with their slices (ROADMAP.md).
+The option recordings that need unported code (monochrome sprites, the
+other games) come with their slices (ROADMAP.md).
 """
 
 import json
@@ -23,7 +23,7 @@ from procgen_tpu_torch.conformance import replay
 HERE = os.path.dirname(os.path.abspath(__file__))
 REC_DIR = os.path.join(HERE, "data", "conformance_opts")
 
-FAST = ("coinrun_restrict", "coinrun_seq", "maze_nobg_vel", "maze_seq")
+FAST = ("coinrun_restrict", "coinrun_seq", "maze_genassets", "maze_nobg_vel", "maze_seq")
 SLOW = ("coinrun_pushchain", "plunder_volley")
 
 

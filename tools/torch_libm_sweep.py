@@ -1,7 +1,7 @@
 """Sweep the port's glibc trig (procgen_tpu_torch/core/libm.py) against the
 JAX package's, on the CPU.
 
-    python tools/torch_libm_sweep.py [--exhaustive] [--variant]
+    python tools/torch_libm_sweep.py [--exhaustive] [--variant] [--large]
 
 Prints one line per count:
 
@@ -14,6 +14,11 @@ Prints one line per count:
 * with ``--exhaustive``: every distinct reset angle (the angles of the
   83,886,081 distinct values ``rand01`` takes), the port's ``cosf`` and
   ``sinf`` against JAX's (about a minute and 2 GB);
+* with ``--large``: the arguments of glibc's ``reduce_large``, 4,000,000
+  floats log-uniform from 120 to 2^127 of both signs and the first
+  1,048,576 floats from 120 on:
+  the port's ``cosf`` and ``sinf`` against JAX's, and against
+  ``libm.so.6`` through ctypes on the first 200,000 of the sample;
 * with ``--variant`` (needs ``gcc``): which build of glibc's code the
   machine's libm runs.  A C transcription of ``sinf``/``cosf``
   (sysdeps/ieee754/flt-32/s_sinf.c, s_cosf.c, sincosf.h) and of fdlibm's
@@ -162,10 +167,38 @@ def variant():
             print(f"C transcription, {name}: {p.communicate()[0].strip()}", flush=True)
 
 
+def large(libm, jcos, jsin, diff, torch, jnp):
+    """The ``--large`` sweep: the port against JAX and against libm.so.6."""
+    import ctypes
+    import ctypes.util
+
+    t0 = time.time()
+    rng = np.random.RandomState(1)
+    e = rng.uniform(np.log2(120.0), 127.99, 4_000_000)
+    sample = (np.exp2(e) * rng.choice([-1.0, 1.0], e.size)).astype(F32)
+    first = (np.arange(1 << 20, dtype=np.uint32) + np.float32(120.0).view(np.uint32)).view(F32)
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for name, port, ref in (("cos", libm.cosf, jcos), ("sin", libm.sinf, jsin)):
+        fn = getattr(lib, name + "f")
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+        for what, xs in (("log-uniform from 120 to 2^127", sample),
+                         ("the first from 120 on", first)):
+            got = port(torch.from_numpy(xs)).numpy()
+            print(f"{name}, {len(xs)} floats {what}: port differs from JAX on "
+                  f"{diff(got, np.asarray(ref(jnp.asarray(xs))))}, NaN on "
+                  f"{int(np.isnan(got).sum())}", flush=True)
+        sub = sample[:200_000]
+        want = np.fromiter((fn(v) for v in sub.tolist()), F32, len(sub))
+        print(f"{name}, {len(sub)} of them: port differs from libm.so.6 on "
+              f"{diff(port(torch.from_numpy(sub)).numpy(), want)}", flush=True)
+    print(f"large sweep: {time.time() - t0:.1f} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--exhaustive", action="store_true")
     ap.add_argument("--variant", action="store_true")
+    ap.add_argument("--large", action="store_true")
     args = ap.parse_args()
     if args.variant:
         variant()
@@ -203,6 +236,9 @@ def main():
           f"{diff(torch.atan2(ty, tx).numpy(), want)}, f64 rounded to f32 "
           f"{diff(np.arctan2(ys.astype(np.float64), xs.astype(np.float64)).astype(F32), want)}",
           flush=True)
+
+    if args.large:
+        large(libm, jcos, jsin, diff, torch, jnp)
 
     if args.exhaustive:
         t0 = time.time()
