@@ -568,9 +568,15 @@ def maze_phase(dev, card, np, torch):
     if err_syn != 0:
         raise AssertionError(f"render_suffix != plain on made-up slots (max err {err_syn})")
     changed = float((got_s != sbase).any(dim=-1).float().mean())
+    # the edge cases at 112 slots (masks of four words)
+    ef_e, ei_e = rk.synthetic_slots(NUM_ENVS, 112, atlas.shape[0], seed=13, edges=True)
+    err_syn = max(err_syn, suffix_check(sbase, ef_e.to(dev), ei_e.to(dev), atlas, 2,
+                                        None, "edge-case slots, cap 112", rk, torch))
+    del ef_e, ei_e
     log("maze", f"render_suffix byte-equal: {NUM_ENVS} maze states ({live} live "
-        f"slots) and {NUM_ENVS}x8 made-up slots ({changed:.3f} of pixels "
-        f"painted); max_abs_err {max(err_real, err_syn)}")
+        f"slots), {NUM_ENVS}x8 made-up slots ({changed:.3f} of pixels "
+        f"painted) and {NUM_ENVS}x112 edge-case slots; max_abs_err "
+        f"{max(err_real, err_syn)}")
     del carry, obs
 
     # the main path
@@ -594,7 +600,8 @@ def maze_phase(dev, card, np, torch):
     b_ms, b_by = bound(moved, ops)
     log("maze", f"render_suffix at N={NUM_ENVS}: kernel {kernel_ms:.4f} ms "
         f"({k1:.4f}, {k2:.4f}), plain torch {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); "
-        f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} f32 ops) on {card}")
+        f"bound {b_ms:.4f} ms ({b_by}; {moved} bytes, {ops} f32 ops) on {card}; "
+        f"<false> instance: {occupancy(rk.suffix_occupancy(ent_f.shape[1], 0))}")
 
     keys = gpu_matches_cpu("maze", np, torch)
     checked = replay_on_card("maze_easy")
@@ -625,6 +632,28 @@ def frame_check(x, what, rk, torch):
     if err != 0:
         raise AssertionError(f"render_frame != plain on {what} (max err {err})")
     return err
+
+
+def occupancy(d):
+    """A kernel instance's resources, from ``rk.frame_occupancy`` or
+    ``rk.suffix_occupancy``, as a log phrase."""
+    return (f"{d['registers']} registers, {d['spill_bytes']} spill bytes a thread, "
+            f"{d['smem_bytes']} B of shared memory a block, {d['blocks_per_sm']} "
+            f"blocks an SM")
+
+
+def edge_frame_check(plan, cap, dcap, seed, rk, torch, bg_mode=None, bg_atlas=None):
+    """render_frame against its plain version on the edge-case slots
+    (``synthetic_frame_inputs(edges=True)``) at the given caps, with the
+    plan's window and atlases; max abs err."""
+    dev = torch.device("cuda")
+    x = rk.synthetic_frame_inputs(
+        NUM_ENVS, plan.NC, cap, plan.on("grid", dev),
+        plan.on("bg", dev) if bg_atlas is None else bg_atlas, plan.atlas(dev),
+        plan.grid_opaque, seed=seed, dcap=dcap,
+        bg_mode=plan.bg_mode if bg_mode is None else bg_mode, edges=True,
+    ).to(dev)
+    return frame_check(x, f"edge-case slots, caps {cap} + {dcap}", rk, torch)
 
 
 def miner_phase(dev, card, np, torch):
@@ -660,10 +689,13 @@ def miner_phase(dev, card, np, torch):
     ).to(dev)
     err = max(err, frame_check(x_syn, "made-up inputs", rk, torch))
     cells = float(((x_syn.cell5[:, 3] > 0.5) & (x_syn.gtab >= x_syn.grid_opaque)).float().mean())
+    del x_syn
+    err = max(err, edge_frame_check(plan, 112, 0, 15, rk, torch))
     log("miner", f"render_frame byte-equal: {NUM_ENVS} miner-easy states after 50 "
         f"steps, {NUM_ENVS} miner-hard states (NC {x_hard.gtab.shape[1]}, sA "
         f"{x_hard.grid_atlas.shape[1]}), {NUM_ENVS} made-up envs ({cells:.3f} of "
-        f"cells valid and uncovered); max_abs_err {err}")
+        f"cells valid and uncovered), {NUM_ENVS} envs of edge-case slots (cap 112); "
+        f"max_abs_err {err}")
 
     # the main path
     carry, launches, step, wall_ms = run_slice(
@@ -683,7 +715,8 @@ def miner_phase(dev, card, np, torch):
     log("miner", f"render_frame at N={NUM_ENVS}: easy kernel {kernel_ms:.4f} ms, "
         f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel, plain: {readings}), "
         f"bound {b_ms:.4f} ms ({b_by}; {b_work}); hard kernel {kh:.4f} ms, bound "
-        f"{bh_ms:.4f} ms ({bh_by}; {bh_work}) on {card}")
+        f"{bh_ms:.4f} ms ({bh_by}; {bh_work}) on {card}; <BG_CROP> instance: "
+        f"{occupancy(rk.frame_occupancy(x))}")
 
     keys = gpu_matches_cpu("miner", np, torch)
     checked = replay_on_card("miner_easy")
@@ -757,13 +790,16 @@ def coinrun_phase(dev, card, np, torch):
         cplan.atlas(dev), cplan.grid_opaque, seed=3, dcap=game.DECOR_CAP,
     ).to(dev)
     err = max(err, frame_check(x_syn, "made-up inputs, both pools full", rk, torch))
+    del x_syn
+    err = max(err, edge_frame_check(world, game.ENT_CAP, game.DECOR_CAP, 17, rk, torch))
     log("coinrun", f"render_frame byte-equal: {NUM_ENVS} coinrun-easy states after 50 "
         f"steps ({trails} live trails) under the whole-world camera (NC {world.NC}, "
         f"sA {world.sA}) and the centred one (NC {cplan.NC}, sA {cplan.sA}), "
         f"{NUM_ENVS} coinrun-hard states after 20 steps ({trails_hard} live trails), "
-        f"{NUM_ENVS} made-up envs (cap {game.ENT_CAP}, dcap {game.DECOR_CAP}); "
+        f"{NUM_ENVS} made-up envs (cap {game.ENT_CAP}, dcap {game.DECOR_CAP}), "
+        f"{NUM_ENVS} envs of edge-case slots at those caps, whole-world window; "
         f"max_abs_err {err}")
-    del x_syn, x_hard
+    del x_hard
 
     # the main path
     carry, launches, step, wall_ms = run_slice("coinrun", dev, card, np, torch)
@@ -784,7 +820,8 @@ def coinrun_phase(dev, card, np, torch):
         f"{plain_ms:.4f} ms (kernel, plain, kernel, plain: {readings}), bound "
         f"{b_ms:.4f} ms ({b_by}; {b_work}); centred kernel {kc_ms:.4f} ms, plain "
         f"{pc_ms:.4f} ms ({creadings}), bound {bc_ms:.4f} ms ({bc_by}; {bc_work}) "
-        f"on {card}")
+        f"on {card}; <BG_CROP> instance, whole world: {occupancy(rk.frame_occupancy(x))}; "
+        f"centred: {occupancy(rk.frame_occupancy(xc))}")
     del x, xc
 
     # the gym3 surface at full width: act + observe, the centred camera
@@ -876,13 +913,15 @@ def fruitbot_phase(dev, card, np, torch):
         cplan.atlas(dev), cplan.grid_opaque, seed=5, bg_mode=rk.BG_TILED,
     ).to(dev)
     err = max(err, frame_check(x_syn, "made-up tiled inputs", rk, torch))
+    del x_syn
+    err = max(err, edge_frame_check(world, world.game.ENT_CAP, 0, 19, rk, torch))
     log("fruitbot", f"render_frame byte-equal: {NUM_ENVS} fruitbot-easy states after "
         f"50 steps ({live} live slots) under the whole-world camera (NC {world.NC}, "
         f"tile height {tile_h:.6f} px) "
         f"and the centred one (NC {cplan.NC}), {NUM_ENVS} fruitbot-hard states after "
-        f"20 steps ({live_hard} live slots), {NUM_ENVS} made-up tiled envs; "
+        f"20 steps ({live_hard} live slots), {NUM_ENVS} made-up tiled envs, "
+        f"{NUM_ENVS} tiled envs of edge-case slots (cap {world.game.ENT_CAP}); "
         f"max_abs_err {err}")
-    del x_syn
 
     # the main path
     carry, launches, step, wall_ms = run_slice("fruitbot", dev, card, np, torch)
@@ -906,7 +945,8 @@ def fruitbot_phase(dev, card, np, torch):
         f"{b_ms:.4f} ms ({b_by}; {b_work}); centred kernel {kc_ms:.4f} ms, plain "
         f"{pc_ms:.4f} ms ({creadings}), bound {bc_ms:.4f} ms ({bc_by}; {bc_work}); "
         f"hard kernel {kh_ms:.4f} ms, plain {ph_ms:.4f} ms ({hreadings}), bound "
-        f"{bh_ms:.4f} ms ({bh_by}; {bh_work}) on {card}")
+        f"{bh_ms:.4f} ms ({bh_by}; {bh_work}) on {card}; <BG_TILED> instance, whole "
+        f"world: {occupancy(rk.frame_occupancy(x))}")
     del x, xc, x_hard
 
     gym_centred("fruitbot", card, np, torch)
@@ -1003,13 +1043,16 @@ def starpilot_phase(dev, card, np, torch):
         cplan.atlas(dev), cplan.grid_opaque, seed=7, dcap=32, bg_mode=rk.BG_SCROLL,
     ).to(dev)
     err = max(err, frame_check(x_syn, "made-up scrolled inputs", rk, torch))
+    del x_syn
+    g = world.game
+    err = max(err, edge_frame_check(world, g.ENT_CAP, g.DECOR_CAP, 21, rk, torch))
     log("starpilot", f"render_frame byte-equal: {NUM_ENVS} starpilot-easy states after "
         f"50 steps ({live} live slots, {booms} explosions) under the whole-world "
         f"camera (NC {world.NC}) and the centred one (NC {cplan.NC}), {NUM_ENVS} hard "
         f"and {NUM_ENVS} extreme states after 20 steps ({live_other[1]} and "
-        f"{live_other[2]} live slots), {NUM_ENVS} made-up scrolled envs; "
+        f"{live_other[2]} live slots), {NUM_ENVS} made-up scrolled envs, {NUM_ENVS} "
+        f"scrolled envs of edge-case slots (caps {g.ENT_CAP} + {g.DECOR_CAP}); "
         f"max_abs_err {err}")
-    del x_syn
 
     # the main path
     carry, launches, step, wall_ms = run_slice("starpilot", dev, card, np, torch)
@@ -1030,7 +1073,8 @@ def starpilot_phase(dev, card, np, torch):
         f"camera kernel {kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, "
         f"plain, kernel, plain: {readings}), bound {b_ms:.4f} ms ({b_by}; {b_work}); "
         f"centred kernel {kc_ms:.4f} ms, plain {pc_ms:.4f} ms ({creadings}), bound "
-        f"{bc_ms:.4f} ms ({bc_by}; {bc_work}) on {card}")
+        f"{bc_ms:.4f} ms ({bc_by}; {bc_work}) on {card}; <BG_SCROLL> instance: "
+        f"{occupancy(rk.frame_occupancy(x))}")
     del x, xc
 
     gym_centred("starpilot", card, np, torch)
@@ -1096,12 +1140,17 @@ def plunder_phase(dev, card, np, torch):
     err = max(err, suffix_check(base.to(dev), ent_f.to(dev), ent_i.to(dev), atlas, nz,
                                 decor.to(dev), "made-up inputs, decor pool full", rk,
                                 torch))
+    base, ent_f, ent_i, decor = rk.synthetic_suffix_inputs(
+        NUM_ENVS, game.ENT_CAP, game.DECOR_CAP, atlas.shape[0], seed=23, edges=True)
+    err = max(err, suffix_check(base.to(dev), ent_f.to(dev), ent_i.to(dev), atlas, nz,
+                                decor.to(dev), "edge-case slots", rk, torch))
     if booms == 0 or booms_hard == 0:
         raise AssertionError(f"plunder: no live explosions ({booms}, {booms_hard})")
     log("plunder", f"render_suffix (decor instance) byte-equal: {NUM_ENVS} plunder-easy "
         f"states after 50 steps ({live} live slots, {booms} explosions), {NUM_ENVS} "
         f"plunder-hard states after 30 steps ({booms_hard} explosions), {NUM_ENVS} "
-        f"made-up envs (cap {game.ENT_CAP}, dcap {game.DECOR_CAP}); max_abs_err {err}")
+        f"made-up envs (cap {game.ENT_CAP}, dcap {game.DECOR_CAP}), {NUM_ENVS} envs of "
+        f"edge-case slots at those caps; max_abs_err {err}")
     del base, ent_f, ent_i, decor
 
     # the main path
@@ -1126,7 +1175,8 @@ def plunder_phase(dev, card, np, torch):
         f"live slots, {int(s.decor.count.sum())} explosions): kernel {kernel_ms:.4f} ms, "
         f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel, plain: {k1:.4f}, "
         f"{p1:.4f}, {k2:.4f}, {p2:.4f}), bound {b_ms:.4f} ms ({b_by}; {b_work}) "
-        f"on {card}")
+        f"on {card}; <true> instance: "
+        f"{occupancy(rk.suffix_occupancy(ent_f.shape[1], decor.dec_f.shape[1]))}")
     del base, ent_f, ent_i, decor, s
 
     keys = gpu_matches_cpu("plunder", np, torch, states=True)
@@ -1387,6 +1437,11 @@ def genassets_phase(dev, card, np, torch):
                 raise AssertionError(f"{name}: not the painted canvas ({x.bg_mode})")
             err = max(err, frame_check(x, f"painted {name} states (centred "
                                        f"{centred})", rk, torch))
+            if name == "coinrun" and not centred:
+                # the edge cases over the envs' painted canvases
+                err = max(err, edge_frame_check(
+                    plan, plan.game.ENT_CAP, plan.game.DECOR_CAP, 25, rk, torch,
+                    bg_atlas=x.bg_atlas))
             if name in ("coinrun", "fruitbot"):
                 what = f"{name}{' centred' if centred else ''}"
                 k_ms, p_ms, readings = time_frame(x, rk)
@@ -1404,7 +1459,8 @@ def genassets_phase(dev, card, np, torch):
         del s
     log("genassets", f"render_frame byte-equal on the painted canvas: {NUM_ENVS} "
         f"states after 50 steps each of coinrun (whole-world and centred cameras), "
-        f"fruitbot (tiled), miner and starpilot (cropped); max_abs_err {err}")
+        f"fruitbot (tiled), miner and starpilot (cropped), and {NUM_ENVS} envs of "
+        f"edge-case slots over coinrun's canvases; max_abs_err {err}")
 
     # the main paths: the gym3 surface with generated assets
     launches, _, _ = gym_genassets("coinrun", dev, card, np, torch, baseline=True)

@@ -22,14 +22,17 @@
 // and writes the 12 KiB frame; the slot parameters (72 bytes a slot) and
 // the atlas texels it touches (at most 4 bytes a pixel per slot, from an
 // atlas that stays in L2) are small beside that.  At 4096 envs a launch
-// moves ~100 MB.  Design: one thread per output pixel, grid (N, 16) of
-// 256-thread blocks, one env's four pixel rows per block; the block stages
-// its env's slot parameters (both pools: (48 + 24) x 72 bytes for plunder)
-// in shared memory; each thread keeps its canvases in registers, so
-// nothing but the frame itself goes through device memory.  The TPU
-// kernel's 32-row slabs are a TPU scheduling device and are left out:
-// outside a sprite's rect its alpha is 0, and blending with alpha 0 is an
-// exact identity.
+// moves ~100 MB.  Design: one 256-thread block per env.  The block copies
+// the env's base frame into shared memory 16 bytes a thread, stages both
+// pools' slots and plans their painting once (sprite.cuh: the list of the
+// slots that paint, their texel index per pixel column and per pixel row,
+// and per row a mask of the slots that cover it); then each thread takes
+// one pixel column of every fourth row, so a warp is 32 columns of one row
+// and walks that row's mask, keeps the pixel's canvases in registers,
+// composites them over the staged pixel and writes it back in place; the
+// block stores the frame 16 bytes a thread.  The TPU kernel's 32-row slabs
+// are a TPU scheduling device and are left out: outside a sprite's rect its
+// alpha is 0, and blending with alpha 0 is an exact identity.
 //
 // Exactness: build with -fmad=false -prec-div=true -ftz=false (kernels.py)
 // and keep the TPU kernel's operation order (pallas_kernel.py:719-830).
@@ -43,17 +46,19 @@ namespace {
 
 using namespace pgt;
 
-constexpr int MAX_NZ = 4;  // canvases of both pools together
-constexpr int ROWS_PER_BLOCK = 4;
-constexpr int THREADS = RES * ROWS_PER_BLOCK;
+constexpr int THREADS = 256;
 
-// The pools' shapes: slots, canvases, each pool's canvas index of z = 0
-// and z = 1 (-1 for none; read by the decor instance).
+// The pools' shapes: slots, canvases, the canvases' composite order.
 struct Pools {
   int cap, dcap, nz, nzd;
-  int zs[2], dzs[2];
+  CanvasOrder order;
   int S, n_rows;
 };
+
+// Dynamic shared memory of one block: the frame, then the slot tables.
+size_t suffix_smem(int cap, int dcap) {
+  return align16(FRAME_BYTES) + slot_tables_bytes(cap + dcap);
+}
 
 template <bool DECOR>
 __global__ void __launch_bounds__(THREADS)
@@ -65,54 +70,45 @@ render_suffix_kernel(const uint8_t* __restrict__ base,
                      const int32_t* __restrict__ counts,
                      const uint8_t* __restrict__ atlas,
                      uint8_t* __restrict__ out, Pools p) {
-  extern __shared__ int32_t smem[];
-  float* sf = reinterpret_cast<float*>(smem);              // [cap, EF_N]
-  int32_t* si = smem + p.cap * EF_N;                       // [cap, EI_N]
-  float* df = reinterpret_cast<float*>(si + p.cap * EI_N);  // [dcap, EF_N]
-  int32_t* di = reinterpret_cast<int32_t*>(df + p.dcap * EF_N);  // [dcap, EI_N]
+  extern __shared__ __align__(16) unsigned char smem[];
+  Carve cv{smem};
+  uint8_t* frame = cv.take<uint8_t>(FRAME_BYTES);
+  SlotTables t;
+  t.carve(cv, p.cap + p.dcap);
 
   const int64_t env = blockIdx.x;
-  load_slots(ent_f, ent_i, env, p.cap, sf, si);
-  if constexpr (DECOR) load_slots(dec_f, dec_i, env, p.dcap, df, di);
+  copy_frame(frame, base + env * FRAME_BYTES);
+  load_slots(ent_f, ent_i, env, p.cap, 0, t);
+  if constexpr (DECOR) load_slots(dec_f, dec_i, env, p.dcap, p.cap, t);
+  clear_masks(t, p.cap + p.dcap);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if constexpr (DECOR)
+      compact_slots(t, p.cap, p.dcap, clampi(counts[env * 2], 0, p.cap),
+                    clampi(counts[env * 2 + 1], 0, p.dcap), p.nz, p.nzd,
+                    p.order, p.S, p.n_rows);
+    else
+      compact_slots(t, p.cap, 0, p.cap, 0, p.nz, 0, p.order, p.S, p.n_rows);
+  }
+  __syncthreads();
+  axis_tables(t, p.S);
   __syncthreads();
 
-  const int row = blockIdx.y * ROWS_PER_BLOCK + threadIdx.x / RES;
+  const uchar4* texels = reinterpret_cast<const uchar4*>(atlas);
   const int col = threadIdx.x % RES;
-  const float sx = (float)col + 0.5f, sy = (float)row + 0.5f;
-
-  float canv[MAX_NZ][4];
-  clear_canvases<MAX_NZ>(canv);
-  const int64_t px = ((env * RES + row) * RES + col) * 3;
-  if constexpr (DECOR) {
-    const int n_ent = clampi(counts[env * 2], 0, p.cap);
-    const int n_dec = clampi(counts[env * 2 + 1], 0, p.dcap);
-    paint_slots<MAX_NZ>(sf, si, n_ent, p.nz, 0, atlas, p.S, p.n_rows, sx, sy,
-                        canv);
-    paint_slots<MAX_NZ>(df, di, n_dec, p.nzd, p.nz, atlas, p.S, p.n_rows, sx,
-                        sy, canv);
+  for (int row = threadIdx.x / RES; row < RES; row += THREADS / RES) {
+    float canv[MAX_CANVASES][4];
+    clear_canvases(canv);
+    // a pixel no slot painted keeps its byte: round(byte) is the byte
+    if (!paint_pixel(t, row, col, texels, p.S, canv)) continue;
+    uint8_t* px = frame + (row * RES + col) * 3;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float o = (float)base[px + c];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        o = composite<MAX_NZ>(o, canv, p.zs[k], c);
-        o = composite<MAX_NZ>(o, canv, p.dzs[k] < 0 ? -1 : p.nz + p.dzs[k], c);
-      }
-      out[px + c] = (uint8_t)(int32_t)o;
-    }
-  } else {
-    paint_slots<MAX_NZ>(sf, si, p.cap, p.nz, 0, atlas, p.S, p.n_rows, sx, sy,
-                        canv);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float o = (float)base[px + c];
-#pragma unroll
-      for (int z = 0; z < MAX_NZ; ++z) {
-        if (z < p.nz) o = rintf(canv[z][c] + o * (1.f - canv[z][3]));
-      }
-      out[px + c] = (uint8_t)(int32_t)o;
-    }
+    for (int c = 0; c < 3; ++c)
+      px[c] = (uint8_t)(int32_t)composite_range((float)px[c], canv, 0,
+                                                p.order.end_all, c, true);
   }
+  __syncthreads();
+  copy_frame(out + env * FRAME_BYTES, frame);
 }
 
 }  // namespace
@@ -120,10 +116,12 @@ render_suffix_kernel(const uint8_t* __restrict__ base,
 // Plain C entry point (loaded with ctypes by procgen_tpu_torch/kernels.py).
 // base/out: uint8 [n, 64, 64, 3]; ent_f / dec_f: f32 [n, cap|dcap, 8];
 // ent_i / dec_i: int32 [n, cap|dcap, 10]; counts: int32 [n, 2], the live
-// counts of the entity and decor pools; atlas: uint8 [n_rows, S, S, 4].
-// dcap == 0 launches the entity-only instance, which reads no decor
-// pointer and no count; otherwise z0/z1 and dz0/dz1 are each pool's canvas
-// index of z = 0 and z = 1 among its nz / nzd canvases, or -1 for none.
+// counts of the entity and decor pools; atlas: uint8 [n_rows, S, S, 4],
+// S <= 255 (the axis tables are uint8).  dcap == 0 launches the
+// entity-only instance, which reads no decor pointer and no count;
+// otherwise z0/z1 and dz0/dz1 are each pool's canvas index of z = 0 and
+// z = 1 among its nz / nzd canvases, or -1 for none.  Refuses pools whose
+// block would need more than 227 KiB of shared memory.
 // Launches on ``stream`` and returns cudaGetLastError() (0 on success).
 extern "C" int render_suffix(const uint8_t* base, const float* ent_f,
                              const int32_t* ent_i, const float* dec_f,
@@ -134,17 +132,35 @@ extern "C" int render_suffix(const uint8_t* base, const float* ent_f,
                              cudaStream_t stream) {
   if (n <= 0) return 0;
   const bool decor = dcap > 0;
-  bool ok = nz >= 1 && cap >= 0 && dcap >= 0 && S >= 1 && n_rows >= 1 &&
-            nz + (decor ? nzd : 0) <= MAX_NZ;
+  bool ok = nz >= 1 && cap >= 0 && dcap >= 0 && S >= 1 && S < OUTSIDE &&
+            n_rows >= 1 && nz + (decor ? nzd : 0) <= MAX_CANVASES;
   if (decor)
     ok = ok && nzd >= 1 && z0 >= -1 && z0 < nz && z1 >= -1 && z1 < nz &&
          dz0 >= -1 && dz0 < nzd && dz1 >= -1 && dz1 < nzd;
-  const size_t smem = (size_t)(cap + dcap) * (EF_N + EI_N) * sizeof(int32_t);
-  if (!ok || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const Pools p{cap, dcap, nz, decor ? nzd : 0, {z0, z1}, {dz0, dz1}, S, n_rows};
-  const dim3 grid((unsigned)n, RES / ROWS_PER_BLOCK);
+  // the entity-only instance composites its canvases in index order; the
+  // decor instance at z = 0, then z = 1, the entity pool's canvas and then
+  // the decor pool's (pallas_kernel.py:951-967)
+  CanvasOrder order{};
+  if (ok && decor) {
+    const int zs[2] = {z0, z1}, dzs[2] = {dz0, dz1};
+    ok = make_order(zs, dzs, 2, 0, nz, &order);
+  } else if (ok) {
+    const int zs[MAX_CANVASES] = {0, 1, 2, 3}, none[MAX_CANVASES] = {-1, -1, -1, -1};
+    ok = make_order(zs, none, nz, 0, nz, &order);
+  }
+  const size_t smem = suffix_smem(cap, dcap);
+  if (!ok || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const Pools p{cap, dcap, nz, decor ? nzd : 0, order, S, n_rows};
   auto kernel = decor ? render_suffix_kernel<true> : render_suffix_kernel<false>;
-  kernel<<<grid, THREADS, smem, stream>>>(base, ent_f, ent_i, dec_f, dec_i,
-                                          counts, atlas, out, p);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)n, THREADS, smem, stream>>>(base, ent_f, ent_i, dec_f,
+                                                 dec_i, counts, atlas, out, p);
   return (int)cudaGetLastError();
+}
+
+// The compiled instance's resources at these pools (pgt::occupancy).
+extern "C" int render_suffix_occupancy(int cap, int dcap, int* out) {
+  auto kernel = dcap > 0 ? render_suffix_kernel<true> : render_suffix_kernel<false>;
+  return occupancy(kernel, suffix_smem(cap, dcap), THREADS, out);
 }

@@ -43,6 +43,8 @@ ENTRY_POINTS = {
     "render_suffix": [_P] * 8 + [_I] * 11 + [_P],
     "render_frame": [_P] * 12 + [_I] * 21 + [_P],
     "assetgen_bg": [_P] * 5 + [_I] * 4 + [_P],
+    "render_suffix_occupancy": [_I] * 2 + [_P],
+    "render_frame_occupancy": [_I] * 4 + [_P],
 }
 
 _LIB = None

@@ -583,6 +583,46 @@ def render_suffix_reference(base, ent_f, ent_i, atlas, nz: int, decor=None):
     return obs.to(i32).to(u8)
 
 
+# The kernels' dynamic shared memory a block, the pieces csrc/sprite.cuh
+# (slot_tables_bytes), render_suffix.cu (suffix_smem) and render_frame.cu
+# (frame_smem) carve, each rounded up to 16 bytes; a block takes at most
+# 227 KiB.  The axis tables hold texel indices as uint8 with 255 for
+# "outside", so the entity atlas's tiles are at most 254 px.
+SMEM_MAX = 232448
+FRAME_BYTES = RES * RES * 3
+MAX_TILE_PX = 254
+
+
+def _a16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def slot_tables_bytes(total: int) -> int:
+    """Shared memory of the slot tables for pools of ``total`` slots."""
+    words = (total + 31) // 32
+    return (_a16(32 * total) + _a16(4 * RES * words) + _a16(4 * EF_N * total)
+            + _a16(4 * EI_N * total) + _a16(4 * total) + 2 * _a16(RES * total) + 16)
+
+
+def suffix_smem(cap: int, dcap: int) -> int:
+    """Shared memory of a ``render_suffix`` block: the frame, the tables."""
+    return _a16(FRAME_BYTES) + slot_tables_bytes(cap + dcap)
+
+
+def frame_smem(NC: int, cap: int, dcap: int) -> int:
+    """Shared memory of a ``render_frame`` block: the frame, the tables,
+    the scalars, the row table, the column and row terms, the alphas."""
+    return (_a16(FRAME_BYTES) + slot_tables_bytes(cap + dcap) + _a16(4 * SF_N)
+            + _a16(4 * SI_N) + _a16(4 * NC * NC) + 8 * _a16(4 * RES) + _a16(4 * 256))
+
+
+def _distinct(slots) -> bool:
+    """No canvas index twice among ``slots`` (-1: none): the kernels
+    composite each canvas at one place of their order."""
+    used = [z for z in slots if z >= 0]
+    return len(set(used)) == len(used)
+
+
 def _check(name, tensors):
     """Raise unless every (label, tensor, dtype, shape) matches, is
     contiguous and lies on the first tensor's device, which is a CUDA
@@ -599,6 +639,15 @@ def _check(name, tensors):
     if dev.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors")
     return dev
+
+
+def _check_aligned(name, frames=(), atlases=()):
+    """Raise unless each uint8 frame batch starts on 16 bytes and each RGBA
+    atlas on 4: the kernels move frames in 16-byte words and read texels
+    as 32-bit words."""
+    for t, align in [(f, 16) for f in frames] + [(a, 4) for a in atlases]:
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: a tensor must start on {align} bytes")
 
 
 def render_suffix(base, ent_f, ent_i, atlas, nz: int, decor=None):
@@ -626,16 +675,20 @@ def render_suffix(base, ent_f, ent_i, atlas, nz: int, decor=None):
             ("counts", decor.counts, i32, (n, 2)),
         ]
         dec_ptrs = tuple(t.data_ptr() for t in (decor.dec_f, decor.dec_i, decor.counts))
-    # up to 4 canvases in registers, both pools together; the slots' 72
-    # bytes each in the default 48 KiB of shared memory
-    ok = 1 <= nz and nz + nzd <= MAX_CANVASES and (cap + dcap) * 72 <= 48 * 1024
+    # up to 4 canvases in registers, both pools together; the frame and
+    # the slot tables in a block's shared memory
+    ok = (1 <= nz and nz + nzd <= MAX_CANVASES and suffix_smem(cap, dcap) <= SMEM_MAX
+          and atlas.shape[1] <= MAX_TILE_PX)
     if decor is not None:
         ok = ok and nzd >= 1 and len(zs) == len(dzs) == 2 and all(
-            -1 <= z < nz for z in zs) and all(-1 <= z < nzd for z in dzs)
+            -1 <= z < nz for z in zs) and all(-1 <= z < nzd for z in dzs) and (
+            _distinct(zs) and _distinct(dzs))
     if not ok:
         raise ValueError(f"render_suffix: nz={nz}, nzd={nzd}, z_slots={zs}, "
-                         f"dz_slots={dzs}, cap={cap} or dcap={dcap} out of range")
+                         f"dz_slots={dzs}, cap={cap}, dcap={dcap} or tile "
+                         f"{atlas.shape[1]} px out of range")
     dev = _check("render_suffix", checks)
+    _check_aligned("render_suffix", frames=(base,), atlases=(atlas,))
     out = torch.empty((n, RES, RES, 3), dtype=u8, device=dev)
     if n == 0:
         return out
@@ -778,19 +831,21 @@ def render_frame(x: FrameInputs):
     n, cap, dcap = x.sf.shape[0], x.ent_f.shape[1], x.dec_f.shape[1]
     NC = x.gtab.shape[1]
     ga, bg, ea = x.grid_atlas, x.bg_atlas, x.ent_atlas
-    # the scalars, the row table and both pools' slots in the default 48 KiB
-    # of shared memory; the cell planes are read from global memory
-    smem = 4 * (SF_N + SI_N + NC * NC + (cap + dcap) * (EF_N + EI_N))
+    # the frame, the slot tables, the scalars, the row table and the row
+    # and column terms in a block's shared memory; the cell planes are read
+    # from global memory
+    smem = frame_smem(NC, cap, dcap)
     slots_ok = (len(x.z_slots) == len(x.dz_slots) == 3
                 and all(-1 <= z < x.nz for z in x.z_slots)
-                and all(-1 <= z < x.nzd for z in x.dz_slots))
+                and all(-1 <= z < x.nzd for z in x.dz_slots)
+                and _distinct(x.z_slots) and _distinct(x.dz_slots))
     if (not 1 <= x.nz or x.nzd < 0 or x.nz + x.nzd > MAX_CANVASES
-            or smem > 48 * 1024 or not slots_ok
+            or smem > SMEM_MAX or not slots_ok or ea.shape[1] > MAX_TILE_PX
             or x.bg_mode not in (BG_NONE, BG_CROP, BG_TILED, BG_SCROLL)):
         raise ValueError(
             f"render_frame: nz={x.nz}, nzd={x.nzd}, z_slots={x.z_slots}, "
-            f"dz_slots={x.dz_slots}, cap={cap}, dcap={dcap} or "
-            f"bg_mode={x.bg_mode} out of range"
+            f"dz_slots={x.dz_slots}, cap={cap}, dcap={dcap}, NC={NC}, tile "
+            f"{ea.shape[1]} px or bg_mode={x.bg_mode} out of range"
         )
     dev = _check("render_frame", [
         ("sf", x.sf, f32, (n, SF_N)),
@@ -807,6 +862,7 @@ def render_frame(x: FrameInputs):
          else (bg.shape[0], bg.shape[1], bg.shape[2], 3)),
         ("ent_atlas", ea, u8, (ea.shape[0], ea.shape[1], ea.shape[1], 4)),
     ])
+    _check_aligned("render_frame", atlases=(ga, ea))
     out = torch.empty((n, RES, RES, 3), dtype=u8, device=dev)
     if n == 0:
         return out
@@ -826,12 +882,38 @@ def render_frame(x: FrameInputs):
     return out
 
 
-def synthetic_slots(n: int, cap: int, n_rows: int, seed: int = 0):
+def _occupancy(fn, *args):
+    from .. import kernels
+
+    out = (ctypes.c_int * 4)()
+    err = getattr(kernels.load(), fn)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: cudaError {err}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))
+
+
+def suffix_occupancy(cap: int, dcap: int) -> dict:
+    """The ``render_suffix`` instance for these pools on the current card:
+    registers and local (spill) bytes a thread, dynamic shared memory a
+    block, blocks resident per SM."""
+    return _occupancy("render_suffix_occupancy", cap, dcap)
+
+
+def frame_occupancy(x: FrameInputs) -> dict:
+    """The same for the ``render_frame`` instance that ``x`` launches."""
+    return _occupancy("render_frame_occupancy", x.bg_mode, x.gtab.shape[1],
+                      x.ent_f.shape[1], x.dec_f.shape[1])
+
+
+def synthetic_slots(n: int, cap: int, n_rows: int, seed: int = 0,
+                    edges: bool = False):
     """Made-up (ent_f, ent_i) CPU tensors covering what maze states do not
     reach: fallback slots, alpha < 1, tall sprites (h2 > 24), rects over
     the frame edges, flipped and transposed-variant rows, tiling along
-    either axis, dead and foreign-z slots.  Built with numpy from ``seed``;
-    the kernel check feeds them to the kernel and its plain version."""
+    either axis, dead and foreign-z slots.  With ``edges``, also the cases
+    at the boundaries of the kernels' per-axis tables and row masks
+    (``_edge_slots``).  Built with numpy from ``seed``; the kernel check
+    feeds them to the kernel and its plain version."""
     rng = np.random.RandomState(seed)
     shape = (n, cap)
     ent_f = np.zeros(shape + (EF_N,), np.float32)
@@ -855,31 +937,115 @@ def synthetic_slots(n: int, cap: int, n_rows: int, seed: int = 0):
     mode = rng.randint(0, 3, shape)  # 0: stretch, 1: tile x, 2: tile y
     ent_i[..., EI_TILEH] = mode == 1
     ent_i[..., EI_TILEV] = mode == 2
-    return torch.as_tensor(ent_f), torch.as_tensor(ent_i)
+    if edges:
+        _edge_slots(rng, ent_f, ent_i)
+    ent_f, ent_i = torch.as_tensor(ent_f), torch.as_tensor(ent_i)
+    if edges:
+        edge_envs_paint(ent_i)
+    return ent_f, ent_i
+
+
+# slots that stay live among dead ones in every fourth env (env % 4 == 1)
+# of the edge cases: the ends of the row masks' 32-slot words
+EDGE_LIVE = (31, 32, 63, 64, 95, 96, 111)
+
+
+def _edge_slots(rng, ent_f, ent_i):
+    """Overwrite about 8 slots in 9 (numpy arrays, in place) with cases at
+    the boundaries of the kernels' plan: rect edges on pixel centres (u ==
+    0 at the first pixel, u the float just below 1 at the last), extents at
+    prep's 1e-6 clamp (a line one pixel wide on a centre, or none), origins
+    of -0.0, rects off the frame along one axis only, rects over the whole
+    frame, tiled slots whose u * ntiles lands on integers; and in every
+    fourth env only the slots ``EDGE_LIVE`` live."""
+    n, cap = ent_i.shape[:2]
+    shape = (n, cap)
+    f32 = np.float32
+    below1 = np.nextafter(f32(1), f32(0))
+    # spans k whose extent nextafter(k) puts pixel centre origin + k at
+    # u = the float just below 1
+    spans = np.array([k for k in range(1, 64) if f32(k) / np.nextafter(
+        f32(k), f32(np.inf)) == below1], f32)
+    centre = rng.randint(-8, 72, shape + (2,)).astype(f32) + f32(0.5)
+    kind = rng.randint(0, 9, shape)
+    for ax, (o, e, nt, tile) in enumerate(((EF_X0, EF_W2, EI_NTH, EI_TILEH),
+                                           (EF_Y0, EF_H2, EI_NTV, EI_TILEV))):
+        other = 1 - ax
+        k = rng.choice(spans, shape)
+
+        def put(m, origin, extent):
+            ent_f[..., o] = np.where(m, origin, ent_f[..., o])
+            ent_f[..., e] = np.where(m, extent, ent_f[..., e])
+
+        # 1: edges on pixel centres, the far one just below u = 1
+        put(kind == 1, centre[..., ax], np.nextafter(k, f32(np.inf)))
+        # 2 (x), 8 (y): the 1e-6 clamp, on a centre or between two
+        put(kind == (2, 8)[ax],
+            centre[..., ax] + np.where(rng.rand(*shape) < 0.5, 0, 0.25), f32(1e-6))
+        # 3: an origin of -0.0
+        put(kind == 3, f32(-0.0), ent_f[..., e])
+        # 4, 5: off the frame along this axis only, or along the other
+        off = np.where(rng.rand(*shape) < 0.5, rng.uniform(-200, -80, shape),
+                       rng.uniform(64.5, 200, shape)).astype(f32)
+        put(kind == 4 + ax, off, rng.uniform(4, 60, shape).astype(f32))
+        put(kind == 4 + other, rng.uniform(-10, 50, shape).astype(f32),
+            rng.uniform(4, 40, shape).astype(f32))
+        # 6: over the whole frame
+        put(kind == 6, -rng.uniform(0, 6, shape).astype(f32),
+            rng.uniform(70, 90, shape).astype(f32))
+        # 7: tiled with u * ntiles on integers at pixel centres
+        tiles = rng.choice([2, 4, 8], shape)
+        put(kind == 7, centre[..., ax], (f32(4) * tiles).astype(f32))
+        ent_i[..., nt] = np.where(kind == 7, tiles, ent_i[..., nt])
+        ent_i[..., tile] = np.where(kind == 7, 1, ent_i[..., tile])
+    boundary = np.zeros(shape, bool)
+    boundary[:, [s for s in EDGE_LIVE if s < cap]] = True
+    ent_i[..., EI_LIVE] = np.where(edge_envs(n)[:, None], boundary, ent_i[..., EI_LIVE])
+
+
+def edge_envs(n: int) -> np.ndarray:
+    """The envs of ``n`` in which the edge cases keep only ``EDGE_LIVE``
+    live: every fourth one."""
+    return np.arange(n) % 4 == 1
+
+
+def edge_envs_paint(ent_i):
+    """Keep the edge cases' ``EDGE_LIVE`` slots painting, also after a
+    caller has redrawn the z levels: z >= 0 there (a tensor, in place).
+    The callers with live counts give those envs full counts."""
+    cap = ent_i.shape[1]
+    fix = torch.as_tensor(edge_envs(ent_i.shape[0]))[:, None] & (ent_i[..., EI_Z] < 0)
+    fix[:, [s for s in range(cap) if s not in EDGE_LIVE]] = False
+    ent_i[..., EI_Z][fix] = 1
 
 
 def synthetic_suffix_inputs(n: int, cap: int, dcap: int, n_rows: int,
-                            dz_levels=(0,), seed: int = 0):
+                            dz_levels=(0,), seed: int = 0, edges: bool = False):
     """Made-up static-path inputs (CPU tensors) with a decor pool: (base,
     ent_f, ent_i, decor).  A random uint8 base frame; the entity pool's
     slots as ``synthetic_slots`` makes them, at z = 0 and 1 (and dead or
     foreign-z ones); a full decor pool at ``dz_levels`` (its canvases), a
     quarter of the envs with live counts below capacity in either pool
-    (the slots past them must not paint).  Built with numpy from
+    (the slots past them must not paint).  ``edges``: both pools as
+    ``synthetic_slots(edges=True)`` makes them.  Built with numpy from
     ``seed``."""
     rng = np.random.RandomState(seed)
     base = torch.as_tensor(rng.randint(0, 256, (n, RES, RES, 3)).astype(np.uint8))
-    ent_f, ent_i = synthetic_slots(n, cap, n_rows, seed=seed)
-    dec_f, dec_i = synthetic_slots(n, dcap, n_rows, seed=seed + 1)
+    ent_f, ent_i = synthetic_slots(n, cap, n_rows, seed=seed, edges=edges)
+    dec_f, dec_i = synthetic_slots(n, dcap, n_rows, seed=seed + 1, edges=edges)
     nzd = len(dz_levels)
     dec_i[..., EI_Z] = torch.as_tensor(rng.choice([-1, 0, 0, nzd], (n, dcap)))
 
     def counts(c):
         return np.where(rng.rand(n) < 0.25, rng.randint(0, c + 1, n), c)
 
+    live = np.stack([counts(cap), counts(dcap)], 1).astype(np.int32)
+    if edges:
+        edge_envs_paint(ent_i)
+        edge_envs_paint(dec_i)
+        live[edge_envs(n)] = (cap, dcap)
     decor = SuffixDecor(
-        dec_f=dec_f, dec_i=dec_i,
-        counts=torch.as_tensor(np.stack([counts(cap), counts(dcap)], 1).astype(np.int32)),
+        dec_f=dec_f, dec_i=dec_i, counts=torch.as_tensor(live),
         nzd=nzd, z_slots=(0, 1),
         dz_slots=tuple(dz_levels.index(z) if z in dz_levels else -1 for z in (0, 1)),
     )
@@ -888,7 +1054,8 @@ def synthetic_suffix_inputs(n: int, cap: int, dcap: int, n_rows: int,
 
 def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
                            ent_atlas, grid_opaque: int, seed: int = 0,
-                           dcap: int = 0, bg_mode: int = BG_CROP):
+                           dcap: int = 0, bg_mode: int = BG_CROP,
+                           edges: bool = False):
     """Made-up ``FrameInputs`` (CPU tensors, the given atlases) covering
     what real textured states do not reach: valid colored cells with an
     inset below 1, cells covered by a tile and uncovered, background rects
@@ -902,7 +1069,9 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
     frame and partly off it sideways, with tile heights from 2 to 70 px
     that need not divide the rect.  With ``bg_mode=BG_SCROLL``, scroll
     offsets of the clocks 0..1000 and offsets that leave part of the frame
-    or all of it off the 18 tiles.  Built with numpy from ``seed``."""
+    or all of it off the 18 tiles.  ``edges``: both pools as
+    ``synthetic_slots(edges=True)`` makes them.  Built with numpy from
+    ``seed``."""
     rng = np.random.RandomState(seed)
     sf = np.zeros((n, SF_N), np.float32)
     vis = rng.choice([NC, NC + 0.5, NC * 1.3], n).astype(np.float32)
@@ -933,10 +1102,15 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
     cell5[:, :3] = rng.randint(0, 256, (n, 3, NC, NC))
     cell5[:, 3] = rng.rand(n, NC, NC) < 0.7
     cell5[:, 4] = rng.choice([2.0, 1.0, 0.6, 0.3, 0.0], (n, NC, NC))
-    ent_f, ent_i = synthetic_slots(n, cap, ent_atlas.shape[0], seed=seed)
+    ent_f, ent_i = synthetic_slots(n, cap, ent_atlas.shape[0], seed=seed, edges=edges)
     ent_i[..., EI_Z] = torch.as_tensor(rng.choice([-1, 0, 1, 2], (n, cap)))
-    dec_f, dec_i = synthetic_slots(n, dcap, ent_atlas.shape[0], seed=seed + 1)
+    dec_f, dec_i = synthetic_slots(n, dcap, ent_atlas.shape[0], seed=seed + 1,
+                                   edges=edges)
     dec_i[..., EI_Z] = torch.as_tensor(rng.choice([-1, 0, 0, 1], (n, dcap)))
+    if edges:
+        edge_envs_paint(ent_i)
+        edge_envs_paint(dec_i)
+        si[edge_envs(n), SI_ENT_COUNT:SI_DEC_COUNT + 1] = (cap, dcap)
     if bg_mode == BG_TILED:
         sf[:, SF_MRX] = rng.uniform(-40, 60, n)
         sf[:, SF_MRW] = rng.uniform(8, 120, n)

@@ -216,9 +216,10 @@ def test_decor_composites_after_the_entity_pool():
 def test_frame_kernel_takes_64x64_windows():
     """The whole-world camera's 64x64 cell window (80 KB of cell planes an
     env) passes the wrapper's checks: the planes are read from global
-    memory, so only the scalars, the row table (16 KB) and the slots count
-    against shared memory.  Pools past the 48 KB, or more than four
-    canvases, are refused."""
+    memory, so only the frame, the slot tables, the scalars, the row table
+    (16 KB) and the row and column terms count against shared memory.
+    Pools past a block's 227 KiB, or more than four canvases, are
+    refused."""
     plan = rk.get_plan(_coinrun(centred=False))
     assert plan.NC == 64
     x = rk.synthetic_frame_inputs(
@@ -226,8 +227,10 @@ def test_frame_kernel_takes_64x64_windows():
         plan.atlas("cpu"), plan.grid_opaque, dcap=96)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         rk.render_frame(x)
-    too_many = dataclasses.replace(x, dec_f=x.dec_f.repeat(1, 8, 1),
-                                   dec_i=x.dec_i.repeat(1, 8, 1))
+    assert rk.frame_smem(plan.NC, 48, 96) > 48 * 1024
+    too_many = dataclasses.replace(x, dec_f=x.dec_f.repeat(1, 9, 1),
+                                   dec_i=x.dec_i.repeat(1, 9, 1))
+    assert rk.frame_smem(plan.NC, 48, 96 * 9) > rk.SMEM_MAX
     with pytest.raises(ValueError, match="out of range"):
         rk.render_frame(too_many)
     too_deep = dataclasses.replace(x, nzd=2, dz_slots=(-1, 0, 1))
@@ -543,16 +546,16 @@ def test_suffix_with_an_empty_decor_pool_is_the_entity_pass():
 
 def test_suffix_decor_bad_inputs_raise():
     """On CPU tensors the wrapper raises before any launch; more than four
-    canvases, a z index past a pool's canvases or pools past the 48 KB of
-    shared memory are refused."""
+    canvases, a z index past a pool's canvases or pools past a block's 227
+    KiB of shared memory are refused."""
     base, ent_f, ent_i, atlas, decor = _synthetic_suffix(2, 6, 4, dz_levels=(0, 1))
     before = dict(rk.LAUNCHES)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         rk.render_suffix(base, ent_f, ent_i, atlas, 2, decor)
     for bad in (dataclasses.replace(decor, nzd=3),
                 dataclasses.replace(decor, dz_slots=(0, 2)),
-                dataclasses.replace(decor, dec_f=decor.dec_f.repeat(1, 200, 1),
-                                    dec_i=decor.dec_i.repeat(1, 200, 1))):
+                dataclasses.replace(decor, dec_f=decor.dec_f.repeat(1, 300, 1),
+                                    dec_i=decor.dec_i.repeat(1, 300, 1))):
         with pytest.raises(ValueError, match="out of range"):
             rk.render_suffix(base, ent_f, ent_i, atlas, 2, bad)
     assert rk.LAUNCHES == before
@@ -678,3 +681,186 @@ def test_cuda_frame_kernel_painted_canvas_matches_plain_version():
         torch.cuda.synchronize()
         assert rk.LAUNCHES["render_frame"] == before + 1
         assert torch.equal(got, want)
+
+
+# -- the kernels' plan: per-axis texel tables, per-row slot lists ------------
+
+
+def _pix():
+    return torch.arange(64, dtype=torch.float32) + 0.5
+
+
+def _covers(ent_f, origin, extent):
+    """[N, cap, 64]: the plain version's own rectangle test along one axis,
+    (pix - origin) / extent in [0, 1)."""
+    u = (_pix()[None, None, :] - ent_f[..., origin, None]) / ent_f[..., extent, None]
+    return (u >= 0) & (u < 1)
+
+
+def _cut_frame(ent_f, ent_i):
+    """ent_i with every slot whose rectangle misses the whole frame dead."""
+    hit = (_covers(ent_f, rk.EF_X0, rk.EF_W2).any(-1)
+           & _covers(ent_f, rk.EF_Y0, rk.EF_H2).any(-1))
+    out = ent_i.clone()
+    out[..., rk.EI_LIVE] = torch.where(hit, ent_i[..., rk.EI_LIVE], 0)
+    return out
+
+
+def _per_row(t):
+    """[N, ...] -> [N * 64, ...]: each env once for every pixel row."""
+    return t.repeat_interleave(64, dim=0)
+
+
+def _cut_rows(ent_f, ent_i):
+    """[N * 64, cap, EI_N]: copy r of each env keeps live only the slots
+    whose rectangle covers pixel row r, the slots of row r's list."""
+    n, cap = ent_i.shape[:2]
+    rows = _covers(ent_f, rk.EF_Y0, rk.EF_H2).permute(0, 2, 1)  # [N, 64, cap]
+    out = _per_row(ent_i).reshape(n, 64, cap, rk.EI_N).clone()
+    out[..., rk.EI_LIVE] = torch.where(rows, out[..., rk.EI_LIVE], 0)
+    return out.reshape(n * 64, cap, rk.EI_N)
+
+
+def _row_of_each(frames, n):
+    """Row r of copy r of each env: [N * 64, 64, 64, 3] -> [N, 64, 64, 3]."""
+    r = torch.arange(64)
+    return frames.reshape(n, 64, 64, 64, 3)[:, r, r]
+
+
+def test_edge_slots_reach_the_boundaries():
+    """The edge cases: rect edges on pixel centres with u == 0 at the first
+    pixel and the float just below 1 at the last, extents at the 1e-6
+    clamp, origins of -0.0, rects off the frame along one axis only and over
+    the whole frame, tiled slots with u * ntiles on integers, and envs where
+    only the slots at the row masks' word ends live."""
+    ent_f, ent_i = rk.synthetic_slots(16, 112, 20, seed=3, edges=True)
+    pix = _pix()
+    u = (pix[None, None, :] - ent_f[..., rk.EF_X0, None]) / ent_f[..., rk.EF_W2, None]
+    below1 = torch.tensor(np.nextafter(np.float32(1), np.float32(0)))
+    assert (u == 0).any() and (u == below1).any()
+    assert (ent_f[..., rk.EF_W2] == np.float32(1e-6)).any()
+    assert (ent_f[..., rk.EF_H2] == np.float32(1e-6)).any()
+    x0 = ent_f[..., rk.EF_X0]
+    assert ((x0 == 0) & torch.signbit(x0)).any()
+    cx = _covers(ent_f, rk.EF_X0, rk.EF_W2)
+    cy = _covers(ent_f, rk.EF_Y0, rk.EF_H2)
+    assert (~cx.any(-1) & cy.any(-1)).any() and (cx.any(-1) & ~cy.any(-1)).any()
+    assert (cx.all(-1) & cy.all(-1)).any()
+    tiled = ent_i[..., rk.EI_TILEH] > 0
+    ut = u * ent_i[..., rk.EI_NTH, None].float()
+    assert ((ut == torch.floor(ut)) & (ut > 0) & cx & tiled[..., None]).any()
+    live = ent_i[..., rk.EI_LIVE] > 0
+    only = torch.as_tensor(rk.edge_envs(16))
+    assert torch.equal(live[only].nonzero()[:, 1].unique(), torch.tensor(rk.EDGE_LIVE))
+    assert (ent_i[..., rk.EI_Z][only][:, list(rk.EDGE_LIVE)] >= 0).all()
+
+
+def test_suffix_culling_is_exact():
+    """The identity the kernels' plan rests on, in the plain static-path
+    version, on the edge cases with both pools: killing every slot whose
+    rectangle misses the frame, or, row by row, every slot whose rectangle
+    misses the row, leaves the frame byte-equal."""
+    n = 2
+    atlas = rk.get_plan(_plunder()).atlas("cpu")
+    base, ent_f, ent_i, decor = rk.synthetic_suffix_inputs(
+        n, 40, 24, atlas.shape[0], seed=11, edges=True)
+    want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor)
+    cut = dataclasses.replace(decor, dec_i=_cut_frame(decor.dec_f, decor.dec_i))
+    ent_cut = _cut_frame(ent_f, ent_i)
+    assert not torch.equal(ent_cut, ent_i)
+    assert torch.equal(rk.render_suffix_reference(base, ent_f, ent_cut, atlas, 2, cut), want)
+    rows = dataclasses.replace(decor, dec_f=_per_row(decor.dec_f),
+                               dec_i=_cut_rows(decor.dec_f, decor.dec_i),
+                               counts=_per_row(decor.counts))
+    got = rk.render_suffix_reference(_per_row(base), _per_row(ent_f),
+                                     _cut_rows(ent_f, ent_i), atlas, 2, rows)
+    assert torch.equal(_row_of_each(got, n), want)
+    # the entity-only instance's path walks every slot, with no counts
+    want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2)
+    got = rk.render_suffix_reference(_per_row(base), _per_row(ent_f),
+                                     _cut_rows(ent_f, ent_i), atlas, 2)
+    assert torch.equal(_row_of_each(got, n), want)
+
+
+def test_frame_culling_is_exact():
+    """The same identity in the plain whole-frame version (background, grid,
+    cells, three entity canvases and the decor pool's): slots cut per env
+    and per row leave the frame byte-equal."""
+    n = 2
+    plan = rk.get_plan(_coinrun())
+    x = rk.synthetic_frame_inputs(
+        n, plan.NC, 24, plan.on("grid", "cpu"), plan.on("bg", "cpu"),
+        plan.atlas("cpu"), plan.grid_opaque, seed=12, dcap=12, edges=True)
+    want = rk.render_frame_reference(x)
+    cut = dataclasses.replace(x, ent_i=_cut_frame(x.ent_f, x.ent_i),
+                              dec_i=_cut_frame(x.dec_f, x.dec_i))
+    assert not torch.equal(cut.ent_i, x.ent_i)
+    assert torch.equal(rk.render_frame_reference(cut), want)
+    rows = dataclasses.replace(
+        x, sf=_per_row(x.sf), si=_per_row(x.si), gtab=_per_row(x.gtab),
+        cell5=_per_row(x.cell5), ent_f=_per_row(x.ent_f),
+        ent_i=_cut_rows(x.ent_f, x.ent_i), dec_f=_per_row(x.dec_f),
+        dec_i=_cut_rows(x.dec_f, x.dec_i))
+    assert torch.equal(_row_of_each(rk.render_frame_reference(rows), n), want)
+
+
+def test_kernel_shared_memory_fits_the_games():
+    """Every ported path's block fits a block's shared memory, the largest
+    (coinrun's whole world: a 64x64 row table, 48 + 96 slots) above the
+    default 48 KB; tiles past 254 px (the uint8 axis tables) are refused."""
+    assert rk.frame_smem(64, 48, 96) > 48 * 1024
+    for NC, cap, dcap in ((64, 48, 96), (60, 112, 0), (16, 64, 32), (16, 2, 0)):
+        assert rk.frame_smem(NC, cap, dcap) <= rk.SMEM_MAX
+    for cap, dcap in ((2, 0), (48, 24), (72, 160)):
+        assert rk.suffix_smem(cap, dcap) <= rk.SMEM_MAX
+    base, ent_f, ent_i, _, decor = _synthetic_suffix(2, 3, 2)
+    big = torch.zeros((2, 255, 255, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="out of range"):
+        rk.render_suffix(base, ent_f, ent_i, big, 2, decor)
+    x = _synthetic_frame(2)
+    with pytest.raises(ValueError, match="out of range"):
+        rk.render_frame(dataclasses.replace(x, ent_atlas=big))
+
+
+def _edge_inputs(case, n, dev):
+    """Made-up inputs with the edge cases at a game's full caps."""
+    if case in ("maze", "plunder"):
+        atlas = rk.get_plan(_plunder()).atlas(dev)
+        if case == "maze":  # the entity-only instance, fruitbot's cap
+            ent_f, ent_i = rk.synthetic_slots(n, 112, atlas.shape[0], seed=21, edges=True)
+            base = torch.as_tensor(np.random.RandomState(21).randint(
+                0, 256, (n, 64, 64, 3)).astype(np.uint8))
+            return base.to(dev), ent_f.to(dev), ent_i.to(dev), atlas, None
+        base, ent_f, ent_i, decor = rk.synthetic_suffix_inputs(
+            n, 48, 24, atlas.shape[0], seed=22, edges=True)
+        return base.to(dev), ent_f.to(dev), ent_i.to(dev), atlas, decor.to(dev)
+    game, cap, dcap, mode = {
+        "miner": (_miner_plan().game, 112, 0, rk.BG_CROP),
+        "coinrun": (_coinrun(centred=False), 48, 96, rk.BG_CROP),
+        "fruitbot": (_fruitbot(), 112, 0, rk.BG_TILED),
+        "starpilot": (_starpilot(), 64, 32, rk.BG_SCROLL),
+    }[case]
+    plan = rk.get_plan(game)
+    return rk.synthetic_frame_inputs(
+        n, plan.NC, cap, plan.on("grid", dev), plan.on("bg", dev), plan.atlas(dev),
+        plan.grid_opaque, seed=23, dcap=dcap, bg_mode=mode, edges=True).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["maze", "plunder", "miner", "coinrun", "fruitbot",
+                                  "starpilot"])
+def test_cuda_kernels_match_plain_version_on_edge_slots(case):
+    """Both kernels on the edge cases at full caps (masks of several words),
+    byte-equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = _edge_inputs(case, 256, torch.device("cuda"))
+    if case in ("maze", "plunder"):
+        base, ent_f, ent_i, atlas, decor = x
+        got = rk.render_suffix(base, ent_f, ent_i, atlas, 2, decor)
+        want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor)
+    else:
+        got = rk.render_frame(x)
+        want = rk.render_frame_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
