@@ -53,7 +53,11 @@ the process exits non-zero):
               against the same functions on the CPU, bit for bit, on
               4,194,304 reset angles, 1,048,576 angles in (-120, 120) and
               1,048,576 of |x| from 120 to 2^127 (glibc's reduce_large; the
-              sine and cosine of each) and 4,194,304 pairs;
+              sine and cosine of each) and 4,194,304 pairs; the C++
+              double expressions of a draw, card against CPU at every
+              distinct ``rand01`` value: bigfish's fish radius (f64
+              ``pow``) and starpilot's spawner velocities (f64 ``sin``
+              and ``cos`` times each speed);
               ``render_frame`` with the time-scrolled
               background against its plain version, byte for byte, on the
               prep of 4096 starpilot-easy states after 50 random steps
@@ -77,7 +81,26 @@ the process exits non-zero):
               steps on the card and on the CPU, bit-equal, every state leaf
               included; the plunder_easy recording replayed exactly on the
               card.
-9. genassets — generated assets: the background painter
+9. leaper   — the static-prefix kernel's entity-only instance
+              (``render_suffix<false>``, cap 80: the finish line tiled
+              across the frame, the frog's tall rectangle in quarter turns)
+              against its plain version, byte for byte, on the prep of 4096
+              leaper-easy states after 50 steps of the slice's program, of
+              4096 hard and 4096 extreme states after 20, and on 4096 envs
+              of edge-case slots at cap 80; the slice ``make_env_fns(4096,
+              "leaper", device="cuda")`` for 50 warm-up and 150 timed steps
+              (its 64-env resets each pre-roll the lanes for 200-360
+              iterations on the host), one ``render_suffix`` launch a step,
+              the split with the 64-env reset's torch operations and
+              milliseconds; the kernel's time against the plain version's
+              and its bound; a 64-env ``ProcgenGym3Env`` for 50 steps on the
+              card and on the CPU, bit-equal, every state leaf included;
+              the leaper_easy recording replayed exactly on the card.
+10. bigfish — the same for bigfish (cap 40, the fish reflected and
+              growing; hard states after 20 steps): its slice runs the
+              sequential reverse collision scan, 100 warm-up and 300 timed
+              steps; the bigfish_easy recording replayed on the card.
+11. genassets — generated assets: the background painter
               ``assetgen_bg`` against its plain version, byte for byte, on
               the draw blocks of 256 seeded streams and on a made-up block
               that takes the longest path, its time at 64 envs (a
@@ -100,18 +123,21 @@ the process exits non-zero):
               on the card and on the CPU for 50 steps, bit-equal, every
               state leaf included; the maze_genassets recording replayed
               exactly on the card.
-10. profile — 5 more steps of each slice under ``torch.profiler``:
+12. profile — 5 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-11. result  — a JSON line of the kernels (``render_suffix``,
+13. result  — a JSON line of the kernels (``render_suffix``,
               ``render_frame`` and ``assetgen_bg`` once for each path that
               launches them), the card line, and the last line ``{"ok":
               true, "device": {...}}``.
 
 Each path's launch counts are set to 0 just before its slice and read just
-after it; launches made to compare or time a kernel do not count.  It
-needs one card and imports nothing of JAX.
+after it; launches made to compare or time a kernel do not count.  The
+CPU halves of the 64-env card-against-CPU runs run meanwhile in a worker
+process of their own (``cpu_worker``, started after the device check,
+stopped at the end); each card half is compared with its CPU half step by
+step.  It needs one card and imports nothing of JAX.
 """
 
 import collections
@@ -132,6 +158,11 @@ TIMED_STEPS = 300
 # must stay well inside its time limit now that coinrun runs too
 MINER_WARM_STEPS = 50
 MINER_TIMED_STEPS = 150
+# leaper's as many as miner's: it replenishes a 64-env chunk nearly every
+# step, and each of its resets pre-rolls the lanes for 200-360 iterations
+# of host-dispatched torch operations (about half a second)
+LEAPER_WARM_STEPS = 50
+LEAPER_TIMED_STEPS = 150
 # the centred gym3 envs: timed steps after 10 warm-up ones
 GYM_TIMED_STEPS = 100
 # the split and the profile run fewer steps than the slices (25 since the
@@ -290,25 +321,36 @@ def frame_bound(x, rk, torch):
     return (*bound(moved, ops), f"{moved} bytes, {ops} f32 ops")
 
 
-def suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch):
-    """(bound_ms, bound_by, work) of ``render_suffix`` with the decor pool:
-    the bytes it must move on this data, each read once (the base frame
-    read and the frame written, both pools' live counts, the slots below
-    each count, the atlas rows those slots sample), against the f32
-    operations of both pools' slots and composites (``slot_ops``)."""
+def suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch, count=None):
+    """(bound_ms, bound_by, work) of ``render_suffix``: the bytes it must
+    move on this data, each read once (the base frame read and the frame
+    written, the slots below each pool's live count and the counts; the
+    entity-only instance takes no count, so for it the slots below the
+    pool's ``count`` (int32 [N], from the states) and each other slot's
+    live flag; the atlas rows the live slots sample), against the f32
+    operations of the pools' slots and composites (``slot_ops``)."""
     dev = base.device
+    pools = [(ent_i, count if decor is None else decor.counts[:, 0])]
+    if decor is not None:
+        pools.append((decor.dec_i, decor.counts[:, 1]))
     slots, rows = 0, []
-    for i, count in ((ent_i, decor.counts[:, 0]), (decor.dec_i, decor.counts[:, 1])):
-        below = torch.arange(i.shape[1], device=dev)[None, :] < count[:, None]
+    for i, c in pools:
+        below = torch.arange(i.shape[1], device=dev)[None, :] < c[:, None]
+        if bool(((i[..., rk.EI_LIVE] > 0) & ~below).any()):
+            raise AssertionError("render_suffix: a live slot past its pool's count")
         slots += int(below.sum())
         rows.append(i[..., rk.EI_ROW][below & (i[..., rk.EI_LIVE] > 0)])
     rows = torch.cat(rows).clamp(0, atlas.shape[0] - 1).unique().numel()
-    moved = (2 * nbytes(base) + nbytes(decor.counts) + (rk.EF_N + rk.EI_N) * 4 * slots
-             + rows * atlas[0].numel())
-    ops = (slot_ops(ent_f, ent_i, atlas, nz, decor.z_slots, rk, torch,
-                    count=decor.counts[:, 0])
-           + slot_ops(decor.dec_f, decor.dec_i, atlas, decor.nzd, decor.dz_slots, rk,
-                      torch, count=decor.counts[:, 1]))
+    flags = 0 if decor is not None else ent_i.shape[0] * ent_i.shape[1] - slots
+    moved = (2 * nbytes(base) + (0 if decor is None else nbytes(decor.counts))
+             + (rk.EF_N + rk.EI_N) * 4 * slots + 4 * flags + rows * atlas[0].numel())
+    if decor is None:
+        ops = slot_ops(ent_f, ent_i, atlas, nz, range(nz), rk, torch, count=count)
+    else:
+        ops = (slot_ops(ent_f, ent_i, atlas, nz, decor.z_slots, rk, torch,
+                        count=decor.counts[:, 0])
+               + slot_ops(decor.dec_f, decor.dec_i, atlas, decor.nzd, decor.dz_slots, rk,
+                          torch, count=decor.counts[:, 1]))
     return (*bound(moved, ops), f"{moved} bytes, {ops} f32 ops")
 
 
@@ -350,6 +392,18 @@ def main():
         f"{nvcc_ver} | {card} | count {torch.cuda.device_count()}")
     dev = torch.device("cuda")
 
+    # the CPU halves of the card-against-CPU runs, meanwhile
+    start_cpu_worker()
+    try:
+        return run_phases(dev, card, np, torch)
+    finally:
+        stop_cpu_worker()
+
+
+def run_phases(dev, card, np, torch):
+    """Phases 2 to 13."""
+    from procgen_tpu_torch import kernels
+
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load()
@@ -362,15 +416,19 @@ def main():
                      coinrun_phase(dev, card, np, torch),
                      fruitbot_phase(dev, card, np, torch),
                      starpilot_phase(dev, card, np, torch),
-                     plunder_phase(dev, card, np, torch))
+                     plunder_phase(dev, card, np, torch),
+                     entity_suffix_phase("leaper", (0, 1, 2), 31, dev, card, np, torch,
+                                         LEAPER_WARM_STEPS, LEAPER_TIMED_STEPS),
+                     entity_suffix_phase("bigfish", (0, 1), 37, dev, card, np, torch))
     rows = list(rows) + genassets_phase(dev, card, np, torch)
 
-    # -- 10. profile: after every timed phase --------------------------------
-    names = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder")
+    # -- 12. profile: after every timed phase --------------------------------
+    names = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
+             "bigfish")
     for name, run in zip(names, runs):
         profile_slice(name, *run, np, torch)
 
-    # -- 11. result ----------------------------------------------------------
+    # -- 13. result ----------------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -393,9 +451,8 @@ def _game(name, mode):
 
 def run_slice(name, dev, card, np, torch, warm=WARM_STEPS, timed=TIMED_STEPS):
     """The main path of one game: ``make_env_fns(4096, name)``, ``warm``
-    warm-up and ``timed`` timed steps (50 and 150; the bench protocol's
-    100 and 300 before),
-    launch counts zeroed just before and read just after.  Returns (carry,
+    warm-up and ``timed`` timed steps (100 and 300 unless given), launch
+    counts zeroed just before and read just after.  Returns (carry,
     launches, step, ms a timed step)."""
     from procgen_tpu_torch.entry import make_env_fns
     from procgen_tpu_torch.render import render_kernel as rk
@@ -437,7 +494,9 @@ def run_slice(name, dev, card, np, torch, warm=WARM_STEPS, timed=TIMED_STEPS):
     split, ops = step_split(carry, actions[:SPLIT_STEPS], name, torch)
     log(name, "step split (synchronised, ms/step): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()) + "; torch operations "
-        "dispatched (a count): " + ", ".join(f"{k} {v}" for k, v in ops.items()))
+        "dispatched (a count): " + ", ".join(f"{k} {v}" for k, v in ops.items())
+        + f"; one env_reset of {RESET_CHUNK} envs, synchronised: "
+        f"{reset_ms(carry, name, torch):.3f} ms")
     return carry, launches, step, wall_ms
 
 
@@ -475,37 +534,118 @@ def profile_slice(name, carry, step, wall_ms, np, torch):
         + "; ".join(f"{k} {v:.3f}" for k, v in by_name.most_common(5)))
 
 
-def gpu_matches_cpu(name, np, torch, states=False, **opts):
-    """A 64-env ProcgenGym3Env (``opts``: its options) for 50 steps on the
-    card and on the CPU: obs, rewards, firsts and every info field
-    (latents included) equal; with ``states``, every leaf of the last
-    states too."""
+# the card-against-CPU runs, in the order the phases make them: (game,
+# every state leaf too, ``ProcgenGym3Env`` options); 64 envs, 50 steps each
+GEN = {"use_generated_assets": True}
+CPU_RUNS = (("maze", False, {}), ("miner", False, {}), ("coinrun", False, {}),
+            ("fruitbot", False, {}), ("starpilot", True, {}), ("plunder", True, {}),
+            ("leaper", True, {}), ("bigfish", True, {}), ("maze", True, GEN),
+            ("coinrun", True, GEN))
+CPU_STEPS = 50
+CPU_THREADS = 4
+_CPU = {}  # the CPU worker: its process, queue, the runs it sent, the next run
+
+
+def gym_run(name, device, states, opts, np):
+    """A 64-env ProcgenGym3Env (``opts``: its options) on ``device`` for
+    ``CPU_STEPS`` steps of seeded actions.  Returns (per step the obs,
+    rewards, firsts and every info field, latents included; the info keys;
+    with ``states``, every leaf of the last states, else None)."""
     from procgen_tpu_torch import ProcgenGym3Env
     from procgen_tpu_torch.bridge import state_to_numpy
 
-    envs = {d: ProcgenGym3Env(num=64, env_name=name, distribution_mode="easy",
-                              rand_seed=0, device=d, **opts) for d in ("cuda", "cpu")}
+    env = ProcgenGym3Env(num=64, env_name=name, distribution_mode="easy", rand_seed=0,
+                         device=device, **opts)
     arng = np.random.RandomState(3)
-    for t in range(50):
-        a = arng.randint(0, 15, size=64).astype(np.int32)
-        outs = {}
-        for d, env in envs.items():
-            env.act(a)
-            rew_, obs_, first_ = env.observe()
-            inf = env._vec._info_impl(env._vec.states)
-            outs[d] = [obs_["rgb"], rew_, first_] + [
-                v.cpu().numpy() for _, v in sorted(inf.items())]
-        for x, y in zip(outs["cuda"], outs["cpu"]):
+    out = []
+    for _ in range(CPU_STEPS):
+        env.act(arng.randint(0, 15, size=64).astype(np.int32))
+        rew, obs, first = env.observe()
+        inf = env._vec._info_impl(env._vec.states)
+        out.append([obs["rgb"], rew, first] + [v.cpu().numpy() for _, v in sorted(inf.items())])
+    return out, sorted(inf), _leaves(state_to_numpy(env._vec.states)) if states else None
+
+
+def cpu_worker(queue):
+    """The CPU halves of ``CPU_RUNS``, in order, each put on ``queue`` as it
+    ends.  It runs in a process of its own, so that the card's phases do
+    not wait for the CPU."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(CPU_THREADS)
+    for i, (name, states, opts) in enumerate(CPU_RUNS):
+        t0 = time.perf_counter()
+        run = gym_run(name, "cpu", states, opts, np)
+        queue.put((i, run, time.perf_counter() - t0))
+
+
+def start_cpu_worker():
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=cpu_worker, args=(queue,), daemon=True)
+    proc.start()
+    _CPU.update(proc=proc, queue=queue, done={}, next=0)
+
+
+def stop_cpu_worker():
+    proc = _CPU.get("proc")
+    if proc is not None:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+
+
+def cpu_run(i):
+    """Run ``i`` of ``CPU_RUNS`` from the worker (waited for), and the
+    seconds the worker took for it and this process waited."""
+    import queue
+
+    done, proc = _CPU["done"], _CPU["proc"]
+    t0 = time.perf_counter()
+    while i not in done:
+        try:
+            k, run, secs = _CPU["queue"].get(timeout=5)
+            done[k] = (run, secs)
+        except queue.Empty:
+            if not proc.is_alive():
+                raise RuntimeError(f"the CPU worker ended (exit code {proc.exitcode}) "
+                                   f"before run {i} of {len(CPU_RUNS)}")
+    run, secs = done.pop(i)
+    return run, secs, time.perf_counter() - t0
+
+
+def gpu_matches_cpu(name, np, torch, states=False, **opts):
+    """The next of ``CPU_RUNS`` (this game, these options) on the card,
+    against the CPU worker's run of it: obs, rewards, firsts and every
+    info field (latents included) equal at each of the 50 steps; with
+    ``states``, every leaf of the last states too."""
+    i = _CPU["next"]
+    if CPU_RUNS[i] != (name, states, opts):
+        raise AssertionError(f"card-against-CPU run {i} is {CPU_RUNS[i]}, not "
+                             f"{(name, states, opts)}")
+    _CPU["next"] = i + 1
+    gpu, keys, g_leaves = gym_run(name, "cuda", states, opts, np)
+    (cpu, c_keys, c_leaves), secs, waited = cpu_run(i)
+    if c_keys != keys or len(cpu) != len(gpu):
+        raise AssertionError(f"{name}: the CPU run has info {c_keys}, {len(cpu)} steps")
+    for t, (xs, ys) in enumerate(zip(gpu, cpu)):
+        for x, y in zip(xs, ys):
             if x.dtype != y.dtype or not np.array_equal(x, y):
                 raise AssertionError(f"{name}: GPU and CPU runs differ at step {t}")
+    log(name, f"card-against-CPU run {i}: the CPU worker's run took {secs:.1f} s, "
+        f"waited for {waited:.1f} s")
     if states:
-        leaves = {d: _leaves(state_to_numpy(env._vec.states)) for d, env in envs.items()}
-        for k, v in leaves["cuda"].items():
-            w = leaves["cpu"][k]
+        if sorted(c_leaves) != sorted(g_leaves):
+            raise AssertionError(f"{name}: GPU and CPU states have other leaves")
+        for k, v in g_leaves.items():
+            w = c_leaves[k]
             if v.dtype != w.dtype or not np.array_equal(v, w, equal_nan=v.dtype.kind == "f"):
                 raise AssertionError(f"{name}: GPU and CPU states differ in {k}")
-        return sorted(inf) + [f"{len(leaves['cuda'])} state leaves"]
-    return sorted(inf)
+        return keys + [f"{len(g_leaves)} state leaves"]
+    return keys
 
 
 def _leaves(tree, pre=""):
@@ -977,6 +1117,17 @@ def libm_check(dev, np, torch):
     cases = [(libm.sincosf, (reset,)), (libm.sincosf, (wide,)), (libm.sincosf, (large,)),
              (libm.atan2f, (ys.astype(np.float32), xs.astype(np.float32)))]
     total = 0
+    # the C++ double expressions of a draw at every distinct rand01 value:
+    # bigfish's fish radius, starpilot's spawner products at every speed
+    from procgen_tpu_torch.games.bigfish import fish_radius
+    from tools.draw_domains import distinct_rand01, spawner_speeds
+
+    r01 = distinct_rand01()
+    theta = torch.unique(((r01.double() - 0.5) * (float(np.float32(np.pi)) / 2)).float())
+    cases.append((fish_radius, (r01.numpy(),)))
+    cases += [(libm.sincos_times, (theta.numpy(), np.full(theta.shape, v, np.float32)))
+              for v in spawner_speeds()]
+    del r01, theta
     for fn, args in cases:
         cpu = fn(*(torch.from_numpy(a) for a in args))
         gpu = fn(*(torch.from_numpy(a).to(dev) for a in args))
@@ -1005,8 +1156,9 @@ def starpilot_phase(dev, card, np, torch):
 
     t0 = time.perf_counter()
     n_trig = libm_check(dev, np, torch)
-    log("starpilot", f"libm cosf, sinf, atan2f: card and CPU bit-equal on {n_trig} "
-        f"inputs, |x| >= 120 among them, no NaN ({time.perf_counter() - t0:.1f} s)")
+    log("starpilot", f"libm cosf, sinf, atan2f, and the f64 fish radius and spawner "
+        f"products at every distinct rand01 value: card and CPU bit-equal on {n_trig} "
+        f"outputs, |x| >= 120 among them, no NaN ({time.perf_counter() - t0:.1f} s)")
 
     # kernel vs plain version: easy after 50 steps under both cameras,
     # hard and extreme after 20, made-up scroll offsets
@@ -1186,6 +1338,112 @@ def plunder_phase(dev, card, np, torch):
     return (carry, step, wall_ms), {
         "name": "render_suffix",
         "path": "plunder",
+        "route": "cuda",
+        "source": "procgen_tpu_torch/csrc/render_suffix.cu",
+        "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
+        "launches": launches["render_suffix"],
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def entity_suffix_phase(name, modes, edge_seed, dev, card, np, torch,
+                        warm=WARM_STEPS, timed=TIMED_STEPS):
+    """A static-prefix game with the entity pool only: the kernel's
+    entity-only instance (``render_suffix<false>``, which stages and plans
+    all ``cap`` slots) against its plain version on real states of each
+    mode and on edge-case slots at the game's cap, the slice, the kernel's
+    time and bound, card against CPU, the easy recording.  Returns
+    ((carry, step, ms a step), the kernels line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.entry import make_env_fns
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    plan = rk.get_plan(_game(name, 0))
+    atlas = plan.atlas(dev)
+    nz = len(plan.z_levels)
+    cap = plan.game.ENT_CAP
+
+    # kernel vs plain version: easy after the slice's warm-up steps of its
+    # program, the other modes after 20, edge-case slots at the cap
+    init, step, seeds = make_env_fns(NUM_ENVS, name, device=dev)
+    carry = init(seeds)
+    rng = np.random.RandomState(1)
+    for _ in range(warm):
+        acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+        carry, obs, rew, done = step(carry, acts)
+    s = carry.states
+    ent_f, ent_i, extra = rk.prep_suffix(plan, s)
+    if extra is not None or ent_f.shape[1] != cap:
+        raise AssertionError(f"{name}: not the entity-only instance at cap {cap}")
+    err = suffix_check(s.frame.contiguous(), ent_f, ent_i, atlas, nz, None,
+                       f"{name}-easy states", rk, torch)
+    live = {0: int(s.ents.count.sum())}
+    most = int(s.ents.count.max())
+    del carry, obs, s, ent_f, ent_i
+    for mode in modes[1:]:
+        game = _game(name, mode)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        for _ in range(20):
+            acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+            s, _ = lifecycle.env_step(game, s, acts)
+        mplan = rk.get_plan(game)
+        ent_f, ent_i, _ = rk.prep_suffix(mplan, s)
+        err = max(err, suffix_check(s.frame.contiguous(), ent_f, ent_i, mplan.atlas(dev),
+                                    len(mplan.z_levels), None, f"{name} mode {mode} states",
+                                    rk, torch))
+        live[mode] = int(s.ents.count.sum())
+        most = max(most, int(s.ents.count.max()))
+        del s, ent_f, ent_i
+    ef, ei = rk.synthetic_slots(NUM_ENVS, cap, atlas.shape[0], seed=edge_seed, edges=True)
+    sbase = torch.as_tensor(np.random.RandomState(edge_seed).randint(
+        0, 256, (NUM_ENVS, 64, 64, 3)).astype(np.uint8), device=dev)
+    err = max(err, suffix_check(sbase, ef.to(dev), ei.to(dev), atlas, nz, None,
+                                f"edge-case slots, cap {cap}", rk, torch))
+    del ef, ei, sbase
+    log(name, f"render_suffix (entity-only instance) byte-equal: {NUM_ENVS} states "
+        f"of each mode {modes} ({live} live slots, at most {most} in an env), "
+        f"{NUM_ENVS} envs of edge-case slots at cap {cap}; max_abs_err {err}")
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice(name, dev, card, np, torch, warm, timed)
+    total = warm + timed
+    if launches["render_suffix"] != total or launches["render_frame"] != 0:
+        raise AssertionError(f"{name}: launches {launches} in {total} steps")
+
+    # the kernel's time against the plain version's, on the slice's states
+    s = carry.states
+    base = s.frame.contiguous()
+    ent_f, ent_i, _ = rk.prep_suffix(plan, s)
+    saved = dict(rk.LAUNCHES)
+    k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz), 200)
+    p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz), 5)
+    k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz), 200)
+    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz), 5)
+    rk.LAUNCHES.update(saved)
+    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    b_ms, b_by, b_work = suffix_bound(base, ent_f, ent_i, atlas, nz, None, rk, torch,
+                                      count=s.ents.count)
+    log(name, f"render_suffix (entity-only instance) at N={NUM_ENVS} "
+        f"({int(s.ents.count.sum())} live slots of {NUM_ENVS * cap}): kernel "
+        f"{kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, plain, kernel, "
+        f"plain: {k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}), bound {b_ms:.4f} ms "
+        f"({b_by}; {b_work}), the kernel at {100 * b_ms / kernel_ms:.1f}% of it, on "
+        f"{card}; <false> instance at cap {cap}: "
+        f"{occupancy(rk.suffix_occupancy(cap, 0))}")
+    del base, ent_f, ent_i, s
+
+    keys = gpu_matches_cpu(name, np, torch, states=True)
+    checked = replay_on_card(f"{name}_easy")
+    log(name, f"64 envs x 50 steps: GPU and CPU bit-equal (obs, rewards, firsts, "
+        f"{', '.join(keys)}); {name}_easy replay exact ({checked} steps)")
+    return (carry, step, wall_ms), {
+        "name": "render_suffix",
+        "path": name,
         "route": "cuda",
         "source": "procgen_tpu_torch/csrc/render_suffix.cu",
         "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
@@ -1508,6 +1766,28 @@ def torch_ops(fn):
     with Count() as c:
         fn()
     return c.n
+
+
+RESET_CHUNK = 64  # a replenish chunk
+
+
+def reset_ms(carry, name, torch, game=None):
+    """Milliseconds of one ``env_reset`` of a replenish chunk's envs, fenced
+    by synchronises (the mean of two calls after one unmeasured)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.parallel import vec
+
+    game = _game(name, 0) if game is None else game
+    chunk = vec._tree_gather(carry.states, torch.arange(
+        RESET_CHUNK, device=carry.valid.device))
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lifecycle.env_reset(game, chunk)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sum(times[1:]) / 2
 
 
 def step_split(carry, actions, name, torch, game=None):

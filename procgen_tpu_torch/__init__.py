@@ -4,17 +4,20 @@ A second package beside the JAX one: the same batched Procgen environments
 as eager torch tensors on one device, with the JAX package's per-step
 Pallas frame kernel rewritten as CUDA kernels for NVIDIA Hopper:
 csrc/render_suffix.cu (the sprite suffix over a cached per-level frame:
-maze, and plunder with its decor pool) and csrc/render_frame.cu (the
-whole frame of a game that is not static: miner, coinrun, fruitbot,
-starpilot).  It imports torch and numpy, never jax or procgen_tpu.  The entry points run on the card (``device="cuda"``)
+maze, leaper, bigfish, and plunder with its decor pool) and
+csrc/render_frame.cu (the whole frame of a game that is not static:
+miner, coinrun, fruitbot, starpilot).  It imports torch and numpy, never
+jax or procgen_tpu.  The entry points run on the card (``device="cuda"``)
 unless the caller passes ``device="cpu"``.  So far it covers maze, miner,
-coinrun, fruitbot, starpilot and plunder in easy and hard mode (starpilot
-in extreme mode too; ROADMAP.md lists what comes next).
+coinrun, fruitbot, starpilot, plunder, leaper and bigfish in easy and
+hard mode (starpilot and leaper in extreme mode too; ROADMAP.md lists
+what comes next).
 """
 
 __version__ = "0.1.0"
 
-ENV_NAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder"]
+ENV_NAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
+             "bigfish"]
 
 # Python-only "exploration" distribution mode fixes one hard level
 # (reference: procgen/env.py:52-61).

@@ -12,9 +12,9 @@ and the entity-pair hook, erase of both pools, the spawn test over both
 pools (``spawn_blocked``), the grid reads and writes, the reset path's
 RNG helpers, the rejection placement of ``reposition``
 (``place_by_rejection``, batched over the envs), the sprite aspect-ratio
-fit and ``game_reset_base``.  The
-sequential entity scan, push chains and the sequential collision scan of
-the other games are queued in ROADMAP.md.
+fit and ``game_reset_base``, and the sequential reverse collision scan
+(``dispatch_sequential``) of the games whose handlers do not commute.
+The sequential entity scan and push chains are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -273,6 +273,11 @@ class BasicAbstractGame:
     def handle_agent_collision_vec(self, s, d, hit):
         return s, d
 
+    def handle_agent_collision(self, s, d, i: int):
+        """The agent against slot ``i`` (a Python int) in the sequential
+        scan; the result is kept only in the envs where they collide."""
+        return s, d
+
     def dispatch_entity_pairs(self, s, d):
         return s, d
 
@@ -300,10 +305,11 @@ class BasicAbstractGame:
         return self.decay_agent_velocity(s)
 
     def decay_agent_velocity(self, s: BasicState) -> BasicState:
+        """``agent->vx *= .9`` (cpp:690-693): the literal is a double, so
+        the product is taken in double and rounded once to f32."""
         e = s.ents
-        return s.replace(
-            ents=e.set_fields(0, vx=0.9 * e.vx[:, 0], vy=0.9 * e.vy[:, 0])
-        )
+        return s.replace(ents=e.set_fields(
+            0, vx=f64_mul(e.vx[:, 0], 0.9), vy=f64_mul(e.vy[:, 0], 0.9)))
 
     def choose_center(self, s: BasicState):
         return s.ents.x[:, 0], s.ents.y[:, 0]
@@ -688,11 +694,11 @@ class BasicAbstractGame:
         return s
 
     def dispatch_collisions(self, s: BasicState, d):
-        """cpp:728-750, the phased vectorised dispatch of games whose
-        handlers commute (DISPATCH_VECTORIZED).  The exact reverse scan of
-        the other games is queued in ROADMAP.md."""
+        """cpp:728-750: the phased vectorised dispatch of games whose
+        handlers commute (DISPATCH_VECTORIZED), else the exact reverse
+        scan (``dispatch_sequential``)."""
         if not self.DISPATCH_VECTORIZED:
-            raise NotImplementedError("sequential collision scan not ported")
+            return self.dispatch_sequential(s, d)
         hit = self.has_agent_collision_mask(s)
         s, d = self.handle_agent_collision_vec(s, d, hit)
         if self.ANY_COLLIDES_WITH_ENTITIES:
@@ -706,6 +712,36 @@ class BasicAbstractGame:
             do = s.ents.smart_step[:, 0] & (s.ents.count > 0)
             s = tree_where(do, s2, s)
             d = tree_where(do, d2, d)
+        return s, d
+
+    def dispatch_sequential(self, s: BasicState, d):
+        """The reverse scan of cpp:728-750 for games whose handlers do not
+        commute (the JAX package's ``lax.scan`` over the slots,
+        procgen_tpu/core/game.py:1140-1199): from the highest live slot down,
+        the agent against slot ``i``, then slot ``i``'s grid probe if it
+        is smart.  Each handler sees what the slots above it left (the
+        agent's size, ``will_erase``).  The loop runs from the batch's
+        largest live count (one host read), each iteration batched over
+        the envs; slot reads are plain gathers where the JAX package
+        selects by a one-hot product.  The entity-pair branch is reached
+        only by DISPATCH_VECTORIZED games and is not ported."""
+        if self.ANY_COLLIDES_WITH_ENTITIES:
+            raise NotImplementedError(
+                f"{self.name}: the sequential entity-pair scan is not ported"
+            )
+        # the base grid handler changes nothing: no probe without a game's
+        grid = (type(self).handle_grid_collision
+                is not BasicAbstractGame.handle_grid_collision)
+        for i in range(int(s.ents.count.max()) - 1, -1, -1):
+            hit = self.has_agent_collision_mask(s)[:, i]  # live slots only
+            s2, d2 = self.handle_agent_collision(s, d, i)
+            s = tree_where(hit, s2, s)
+            d = tree_where(hit, d2, d)
+            if grid:
+                do = (i < s.ents.count) & s.ents.smart_step[:, i]
+                s2, d2 = self.check_grid_collisions(s, d, i)
+                s = tree_where(do, s2, s)
+                d = tree_where(do, d2, d)
         return s, d
 
     def handle_grid_collision(self, s, d, slot, type_, ix, iy):
@@ -902,6 +938,14 @@ class BasicAbstractGame:
         gy = torch.arange(self.WORLD_DIM_MAX[1], device=dev)[None, :, None]
         inb = (gx < s.main_width[:, None, None]) & (gy < s.main_height[:, None, None])
         return inb & (s.grid == type_)
+
+
+def f64_mul(a: torch.Tensor, c: float) -> torch.Tensor:
+    """``f32(double(a) * c)``: a C++ float expression with a double
+    literal, which C++ evaluates in double and rounds once to float (one
+    IEEE double product, then one conversion, the same bits on the CPU and
+    the card)."""
+    return (a.double() * c).float()
 
 
 def first_true(mask: torch.Tensor) -> torch.Tensor:

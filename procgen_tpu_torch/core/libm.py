@@ -22,6 +22,8 @@ and those are glibc 2.36's (x86_64):
   shifts emulated in int64 halves of 32 bits.
 * ``atan2f``: fdlibm's ``e_atan2f.c`` and ``s_atanf.c`` (glibc's
   ``sysdeps/ieee754/flt-32``), in f32, unfused.
+* ``sincos_times``: a double ``sin``/``cos`` times an f32 speed, rounded
+  once to f32 (starpilot's spawners), on fdlibm's f64 kernels.
 
 Every operation takes a tensor operand or a Python float that is exact in
 the operation's dtype; no torch op that fuses a multiply and an add
@@ -226,6 +228,56 @@ _PI_O_4 = _f(7.8539818525e-01)
 _PI_O_2 = _f(1.5707963705e+00)
 _PI = _f(3.1415927410e+00)
 _PI_LO = _f(-8.7422776573e-08)
+
+
+# fdlibm's k_sin.c / k_cos.c kernel polynomials for |x| <= pi/4, f64
+_KS = (-1.66666666666666324348e-01, 8.33333333332248946124e-03,
+       -1.98412698298579493134e-04, 2.75573137070700676789e-06,
+       -2.50507602534068634195e-08, 1.58969099521155010221e-10)
+_KC = (4.16666666666666019037e-02, -1.38888888888741095749e-03,
+       2.48015872894767294178e-05, -2.75573143513906633035e-07,
+       2.08757232129817482790e-09, -1.13596475577881948265e-11)
+
+
+def _kernel_sin(x: torch.Tensor) -> torch.Tensor:
+    """fdlibm's ``__kernel_sin(x, 0, 0)``: f64, |x| <= pi/4."""
+    s1, s2, s3, s4, s5, s6 = _KS
+    z = x * x
+    v = z * x
+    r = s2 + z * (s3 + z * (s4 + z * (s5 + z * s6)))
+    return x + v * (s1 + z * r)
+
+
+def _kernel_cos(x: torch.Tensor) -> torch.Tensor:
+    """fdlibm's ``__kernel_cos(x, 0)``: f64, |x| <= pi/4.  Above 0.3 it
+    subtracts ``qx``, |x|/4 cut to its high word (0.28125 above 0.78125),
+    first."""
+    c1, c2, c3, c4, c5, c6 = _KC
+    z = x * x
+    r = z * (c1 + z * (c2 + z * (c3 + z * (c4 + z * (c5 + z * c6)))))
+    zr = z * r
+    small = 1.0 - (0.5 * z - zr)
+    bits = torch.abs(x).view(i64)
+    hi = bits >> 32
+    q = ((bits - (0x00200000 << 32)) & ~0xFFFFFFFF).view(f64)
+    q = torch.where(hi > 0x3FE90000, 0.28125, q)
+    large = (1.0 - q) - ((0.5 * z - q) - zr)
+    return torch.where(hi < 0x3FD33333, small, large)
+
+
+def sincos_times(theta: torch.Tensor, v: torch.Tensor):
+    """``(float)(sin(theta) * v)`` and ``(float)(cos(theta) * v)`` for f32
+    ``theta`` in [-pi/4, pi/4] and f32 ``v``, where ``sin``/``cos`` are C's
+    double functions: a C++ float expression that calls them is evaluated
+    in double and rounded once to float.  The double sine and cosine are
+    fdlibm's kernels in explicit f64 operations, so the CPU and the card
+    agree; glibc's are needed only as far as they reach the f32 result,
+    and the kernels are held to them there at every heading of
+    starpilot's spawners and each of its speeds
+    (``tools/torch_libm_sweep.py --spawners``)."""
+    t = theta.to(f64)
+    v = v.to(f64)
+    return (_kernel_sin(t) * v).to(f32), (_kernel_cos(t) * v).to(f32)
 
 
 def _full(like, v):

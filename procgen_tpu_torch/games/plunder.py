@@ -234,7 +234,7 @@ class Plunder(BasicAbstractGame):
         d01 = rng._rand01_from(words[:, 6::2])
         v01 = rng._rand01_from(words[:, 7::2])
         lane_dirs = d01 < 0.5
-        lane_vels = 0.15 + 0.1 * v01
+        lane_vels = (0.15 + 0.1 * v01.double()).float()
         d = d.replace(cursor=d.cursor + 6 + 2 * NUM_LANES)
 
         # panels (plunder.cpp:155-163), each placed against the pool and

@@ -377,12 +377,16 @@ class Starpilot(BasicAbstractGame):
         sr01 = rng._rand01_from(peek(base + 3 + c(is_turret.long())))
         xraw = peek(base + 3 + c(is_turret.long() + is_flyer.long()))
 
+        # C++ takes ``(rand01() - .5) * 2 * PI / 4`` in double (the .5 is a
+        # double, PI a float) and rounds it to the float theta; its
+        # ``-1 * cos(theta) * v_scale`` is the double cos, the product in
+        # double, rounded once (libm.sincos_times)
         theta = torch.where((zro == 1) | c(is_mc | is_turret), 0.0,
-                            (th01 - 0.5) * _f32(2 * PI / 4))
+                            ((th01.double() - 0.5) * (_f32(PI) / 2)).float())
         v_scale = torch.where(is_mc | is_turret, _f32(self.hp_slow_v), v_tab[tl])
         v_scale = c(v_scale * _f32(V_SCALE))
-        sin, cos = libm.sincosf(theta)
-        vx = -cos * v_scale
+        sin_v, cos_v = libm.sincos_times(theta, v_scale)
+        vx = -cos_v
         can_left = self.mode != EASY_MODE
         spawn_right = ~(c(is_flyer) & (sr01 > _f32(self.hp_spawn_right_threshold))
                         & can_left)
@@ -396,7 +400,7 @@ class Starpilot(BasicAbstractGame):
         rot = torch.where(vx > 0, -1.0, 1.0) * _f32(PI) / 2
         rec = {
             "x": torch.where(spawn_right, c(16.0 + r), c(-r)), "y": c(ypos),
-            "vx": vx, "vy": sin * v_scale, "rx": c(r),
+            "vx": vx, "vy": sin_v, "rx": c(r),
             "ry": torch.where(c(is_turret), c(r) / ar, c(r)),
             "type": c(type_), "image_type": c(type_),
             "fire_time": torch.where(c(is_mc), -1, torch.where(c(is_turret), tft0, ft0)),

@@ -233,10 +233,9 @@ def get_atlases(game, res: int):
     """(GridAtlas, BackgroundAtlas, entity GridAtlas) for a game at a given
     resolution; cached.  Raises when the asset artifact is missing."""
     # the tile size follows the camera, so center_agent is part of the
-    # key; generated sprites follow the asset seed
+    # key, with every option; generated sprites follow the asset seed
     key = (
-        game.name, game.options.distribution_mode, res, id(type(game)),
-        game.options.use_monochrome_assets, bool(game.center_agent),
+        game.name, game.options, res, id(type(game)), bool(game.center_agent),
         game.options.use_generated_assets and int(game.fixed_asset_seed),
     )
     if key in _CACHE:

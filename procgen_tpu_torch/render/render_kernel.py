@@ -2,8 +2,8 @@
 
 The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
 
-* the static-prefix path, which maze and plunder take: the background,
-  grid tiles and colored cells are composed once per level into
+* the static-prefix path, which maze, leaper, bigfish and plunder take:
+  the background, grid tiles and colored cells are composed once per level into
   ``state.frame`` (lifecycle.env_reset), and each step composites only the
   sprites over that frame.  ``render_suffix`` launches
   ``csrc/render_suffix.cu``; it reproduces the Pallas kernel's K1a (start
@@ -159,8 +159,10 @@ _PLANS: dict = {}
 
 
 def get_plan(game, res: int = RES) -> RenderPlan:
-    key = (game.name, game.options.distribution_mode, res, id(type(game)),
-           game.options.use_monochrome_assets, bool(game.center_agent),
+    # every option is part of the key (the plan keeps its game, whose
+    # themes follow restrict_themes), the camera the game chose, and the
+    # generated sprites' seed
+    key = (game.name, game.options, res, id(type(game)), bool(game.center_agent),
            game.options.use_generated_assets and int(game.fixed_asset_seed))
     if key not in _PLANS:
         _PLANS[key] = RenderPlan(game, res)

@@ -20,7 +20,9 @@
 * coinrun_easy, coinrun_hard and coinrun_exploration replay exactly.
 * The bridge carries a state with live trails both ways.
 * More smart movers than ``MAX_SMART`` (made-up), and the base class's
-  continuous velocity update.
+  continuous velocity update, whose decay C++ takes in double: the
+  children evaluate it so (``test_torch_refstate.patch_jax_cpp_arithmetic``,
+  in the children only; coinrun's own velocity update does not decay).
 
 The JAX reference runs once, in two child processes (this file run as a
 script, one for each run, while the port runs its own and replays the
@@ -634,4 +636,7 @@ def test_gym3_env_runs_centred():
 
 
 if __name__ == "__main__":
+    from test_torch_refstate import patch_jax_cpp_arithmetic
+
+    patch_jax_cpp_arithmetic()
     _jax_reference(sys.argv[1], sys.argv[2])

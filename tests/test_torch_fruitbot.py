@@ -32,6 +32,11 @@ port does.  The children clear the JAX package's atlas and render-plan
 caches between the two cameras (their keys leave out ``center_agent``)
 and trace ``lifecycle.env_reset`` once, under ``jax.jit``.
 
+The children also hold the JAX package to the C++ arithmetic where C++
+evaluates a float expression in double (the agent's velocity decay):
+``test_torch_refstate.patch_jax_cpp_arithmetic`` evaluates those
+expressions in f64 and rounds once, in the children only.
+
 Tolerance: zero.
 """
 
@@ -740,4 +745,7 @@ def test_gym3_env_runs_centred():
 
 
 if __name__ == "__main__":
+    from test_torch_refstate import patch_jax_cpp_arithmetic
+
+    patch_jax_cpp_arithmetic()
     _jax_reference(sys.argv[1], sys.argv[2])

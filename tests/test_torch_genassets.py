@@ -1,28 +1,35 @@
-"""The six ported games under ``use_generated_assets`` against the JAX
+"""The eight ported games under ``use_generated_assets`` against the JAX
 package.
 
-For each of maze, miner, coinrun, fruitbot, starpilot and plunder (easy,
-the whole-world camera), 2 envs with generated assets: ``initial_state``,
-``env_reset`` and 8 random ``env_step``s, every ``BasicState`` leaf of
-every step bit-equal (``bg_canvas``, the painted background, and
-``rand_gen``, advanced by the painter's words, among them); the frames of
-steps 0, 4 and 8, and of coinrun's under the agent-centred camera too,
-through ``render_kernel.render_obs_batch`` (on CPU tensors, the plain versions of
-the frame kernels with the painted canvas as the background) and
-``renderer.render_obs`` against the XLA ``render_obs``, and for coinrun,
-miner and starpilot against the Pallas kernel in interpret mode.
-Fruitbot's tiled canvas is where the JAX package's two renderers part:
-its Pallas prep never sets the tile height of a painted canvas
-(pallas_kernel.py:279 before :292), so the kernel divides by 0; the port
-follows XLA, and the test asserts both facts (ROADMAP Queue 3).
+For each of maze, miner, coinrun, fruitbot, starpilot, plunder, leaper
+and bigfish (easy, the whole-world camera), 2 envs with generated
+assets: ``initial_state``, ``env_reset`` and 8 random ``env_step``s,
+every ``BasicState`` leaf of every step bit-equal (``bg_canvas``, the
+painted background, and ``rand_gen``, advanced by the painter's words,
+among them); the frames of steps 0, 4 and 8, and of coinrun's under the
+agent-centred camera too, through ``render_kernel.render_obs_batch`` (on
+CPU tensors, the plain versions of the frame kernels with the painted
+canvas as the background) and ``renderer.render_obs`` against the XLA
+``render_obs``, and for coinrun, miner and starpilot against the Pallas
+kernel in interpret mode. Fruitbot's tiled canvas is where the JAX
+package's two renderers part: its Pallas prep never sets the tile height
+of a painted canvas (pallas_kernel.py:279 before :292), so the kernel
+divides by 0; the port follows XLA, and the test asserts both facts
+(ROADMAP Queue 3).
 
-The JAX reference runs in three child processes started together (this
+The JAX reference runs in four child processes started together (this
 file run as a script; tracing and compiling the reset with the painter is
 most of their time, 120 s for fruitbot alone with a cold cache) whose XLA
 is held to AVX (``--xla_cpu_max_isa=AVX``), as in
 tests/test_torch_plunder.py: XLA's CPU backend otherwise contracts ``a *
 b + c`` into a fused multiply-add, which the painter's colors and blends
 would show.  The port runs meanwhile.
+
+The children also hold the JAX package to the C++ arithmetic where C++
+evaluates a float expression in double (the agent's velocity decay of
+fruitbot, starpilot and plunder, starpilot's spawner velocities and
+plunder's lane speeds): ``test_torch_refstate.patch_jax_cpp_arithmetic``
+evaluates those expressions in f64 and rounds once, in the children only.
 
 Tolerance: zero.
 """
@@ -56,14 +63,16 @@ from procgen_tpu_torch.utils.host_mt import HostMT19937  # noqa: E402
 N = 2
 STEPS = 8
 FRAME_STEPS = (0, 4, 8)
-GAMES = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder")
+GAMES = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
+         "bigfish")
 # rendered runs -> (game, centred camera); the camera leaves the step
 # logic alone, so the centred run renders coinrun's states
 RUNS = {name: (name, False) for name in GAMES}
 RUNS["coinrun_centred"] = ("coinrun", True)
 PALLAS = ("miner", "coinrun", "coinrun_centred", "starpilot", "fruitbot")
 # the JAX children's games, about the same time each
-CHILDREN = (("fruitbot",), ("coinrun", "starpilot"), ("maze", "miner", "plunder"))
+CHILDREN = (("fruitbot",), ("coinrun", "starpilot"), ("maze", "miner", "plunder"),
+            ("leaper", "bigfish"))
 SEP = "::"
 
 
@@ -292,4 +301,7 @@ def test_frame_takes_the_painted_canvas(run, port):
 
 
 if __name__ == "__main__":
+    from test_torch_refstate import patch_jax_cpp_arithmetic
+
+    patch_jax_cpp_arithmetic()
     _jax_reference(sys.argv[1], sys.argv[2:])

@@ -34,6 +34,12 @@ b + c`` into a fused multiply-add, which neither the C++ reference nor the
 port does.  The children trace ``lifecycle.env_reset`` once, under
 ``jax.jit``.
 
+The children also hold the JAX package to the C++ arithmetic where C++
+evaluates a float expression in double (the agent's velocity decay and
+the lane speeds): ``test_torch_refstate.patch_jax_cpp_arithmetic``
+evaluates those expressions in f64 and rounds once, in the children
+only.
+
 Tolerance: zero.
 """
 
@@ -657,4 +663,7 @@ def test_gym3_env_runs():
 
 
 if __name__ == "__main__":
+    from test_torch_refstate import patch_jax_cpp_arithmetic
+
+    patch_jax_cpp_arithmetic()
     _jax_reference(sys.argv[1], sys.argv[2])

@@ -2,6 +2,7 @@
 JAX package's, on the CPU.
 
     python tools/torch_libm_sweep.py [--exhaustive] [--variant] [--large]
+                                     [--pow] [--spawners]
 
 Prints one line per count:
 
@@ -19,6 +20,17 @@ Prints one line per count:
   1,048,576 floats from 120 on:
   the port's ``cosf`` and ``sinf`` against JAX's, and against
   ``libm.so.6`` through ctypes on the first 200,000 of the sample;
+* with ``--pow``: bigfish's fish radius, ``f32(1.75 * pow(r, 1.4) + 0.25)``
+  in double (bigfish.cpp:85), at every distinct ``rand01`` value ``r``:
+  the port's ``games/bigfish.fish_radius`` (torch's f64 ``pow``) against
+  glibc's ``pow`` from libm.so.6 through ctypes, in worker processes (about
+  a minute on 8 cores); also how many of the f64 powers themselves differ;
+* with ``--spawners``: starpilot's spawner velocities, ``f32(cos(theta) *
+  v)`` and ``f32(sin(theta) * v)`` with C's double ``sin``/``cos``, at the
+  heading ``theta = f32((r - .5) * 2 * PI / 4)`` of every distinct
+  ``rand01`` value and every speed ``v`` a spawner takes in any mode: the
+  port's ``core/libm.sincos_times`` against libm.so.6's ``sin`` and
+  ``cos`` through ctypes;
 * with ``--variant`` (needs ``gcc``): which build of glibc's code the
   machine's libm runs.  A C transcription of ``sinf``/``cosf``
   (sysdeps/ieee754/flt-32/s_sinf.c, s_cosf.c, sincosf.h) and of fdlibm's
@@ -49,13 +61,10 @@ def reset_angles(r01):
 
 
 def distinct_rand01():
-    """Every value ``f32(word) * 2^-32`` takes, ascending: the integers
-    below 2^24, each binade's floats from 2^24 to 2^31, and 2^32."""
-    parts = [np.arange(1 << 24, dtype=np.float64)]
-    for k in range(24, 32):
-        parts.append(2.0**k + np.arange(1 << 23, dtype=np.float64) * 2.0**(k - 23))
-    parts.append(np.array([2.0**32]))
-    return (np.concatenate(parts) * 2.0**-32).astype(F32)
+    """Every value ``f32(word) * 2^-32`` takes, ascending (numpy f32)."""
+    from tools.draw_domains import distinct_rand01 as values
+
+    return values().numpy()
 
 
 VARIANT_C = r"""
@@ -194,14 +203,86 @@ def large(libm, jcos, jsin, diff, torch, jnp):
     print(f"large sweep: {time.time() - t0:.1f} s", flush=True)
 
 
+def _glibc_chunk(job):
+    """glibc's double ``pow(x, 1.4)``, or ``sin``/``cos``, of the floats
+    ``xs`` through ctypes (one worker process's share)."""
+    import ctypes
+
+    name, xs = job
+    lib = ctypes.CDLL("libm.so.6")
+    if name == "pow":
+        fn = lib.pow
+        fn.restype, fn.argtypes = ctypes.c_double, [ctypes.c_double, ctypes.c_double]
+        return np.fromiter((fn(v, 1.4) for v in xs.tolist()), np.float64, len(xs))
+    fn = getattr(lib, name)
+    fn.restype, fn.argtypes = ctypes.c_double, [ctypes.c_double]
+    return np.fromiter((fn(v) for v in xs.tolist()), np.float64, len(xs))
+
+
+def _glibc(name, xs, pool, parts=64):
+    return np.concatenate(pool.map(_glibc_chunk, [(name, c) for c in np.array_split(xs, parts)]))
+
+
+def pow_sweep(torch, pool):
+    """The ``--pow`` sweep."""
+    from procgen_tpu_torch.games.bigfish import fish_radius
+
+    t0 = time.time()
+    r = distinct_rand01()
+    p = _glibc("pow", r.astype(np.float64), pool)
+    want = (1.75 * p + 0.25).astype(F32)
+    tr = torch.from_numpy(r)
+    got = fish_radius(tr).numpy()
+    tp = torch.pow(tr.to(torch.float64), 1.4).numpy()
+    print(f"pow: {len(r)} distinct rand01 values: the port's fish radius differs "
+          f"from glibc's on {int((got.view(np.uint32) != want.view(np.uint32)).sum())}; "
+          f"torch's f64 pow differs from glibc's pow itself on "
+          f"{int((tp != p).sum())} ({time.time() - t0:.1f} s)", flush=True)
+
+
+def spawner_sweep(torch, pool):
+    """The ``--spawners`` sweep."""
+    from procgen_tpu_torch.core.libm import sincos_times
+    from tools.draw_domains import spawner_speeds
+
+    t0 = time.time()
+    r = distinct_rand01()
+    theta = np.unique(((r.astype(np.float64) - 0.5) * (float(F32(np.pi)) / 2)).astype(F32))
+    th64 = theta.astype(np.float64)
+    s64, c64 = _glibc("sin", th64, pool), _glibc("cos", th64, pool)
+    tt = torch.from_numpy(theta)
+    bad = {"sin": 0, "cos": 0}
+    speeds = spawner_speeds()
+    for v in speeds:
+        got_s, got_c = sincos_times(tt, torch.full_like(tt, v))
+        for name, got, ref in (("sin", got_s, s64), ("cos", got_c, c64)):
+            want = (ref * v).astype(F32)
+            bad[name] += int((got.numpy().view(np.uint32) != want.view(np.uint32)).sum())
+    print(f"spawners: {len(theta)} distinct headings x {len(speeds)} speeds: the "
+          f"port's sin products differ from glibc's on {bad['sin']}, cos products "
+          f"on {bad['cos']} ({time.time() - t0:.1f} s)", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--exhaustive", action="store_true")
     ap.add_argument("--variant", action="store_true")
     ap.add_argument("--large", action="store_true")
+    ap.add_argument("--pow", action="store_true")
+    ap.add_argument("--spawners", action="store_true")
     args = ap.parse_args()
     if args.variant:
         variant()
+    if args.pow or args.spawners:
+        import multiprocessing
+
+        import torch
+
+        with multiprocessing.get_context("fork").Pool() as pool:
+            if args.pow:
+                pow_sweep(torch, pool)
+            if args.spawners:
+                spawner_sweep(torch, pool)
 
     import jax
     import jax.numpy as jnp
