@@ -100,7 +100,32 @@ the process exits non-zero):
               growing; hard states after 20 steps): its slice runs the
               sequential reverse collision scan, 100 warm-up and 300 timed
               steps; the bigfish_easy recording replayed on the card.
-11. genassets — generated assets: the background painter
+11. dodgeball — the static-prefix kernel's decor instance at dodgeball's
+              caps (72 entity slots, 16 dust clouds; lava walls tiled
+              along x and along y, the rotation banks of the balls, the
+              agent and the enemies) against its plain version, byte for
+              byte, on the prep of 4096 easy states after 50 steps of the
+              slice's program, of 4096 hard and 4096 extreme states after
+              30, and on 4096 envs of edge-case slots at those caps with
+              made-up tiled walls and bank rows; the slice
+              ``make_env_fns(4096, "dodgeball", device="cuda")``, 50
+              warm-up and 150 timed steps (a 64-env reset nearly every
+              step), one ``render_suffix`` launch a step; the kernel's time, its bound and its instance's
+              occupancy; a 64-env ``ProcgenGym3Env`` for 50 steps on the
+              card and on the CPU, bit-equal, every state leaf included;
+              the dodgeball_easy recording replayed exactly on the card.
+12. memory  — memory mode's centred whole frame: ``render_frame`` on the
+              window of ``visibility + 3`` cells (11 for maze and miner, 19
+              for dodgeball with both pools) against its plain version,
+              byte for byte, on the prep of 4096 memory states of each
+              game and on edge-case slots at dodgeball's caps; the
+              kernel's time and bound on maze's and dodgeball's states and
+              the instances' occupancy; 64-env maze memory on the card and
+              on the CPU for 50 steps, bit-equal, every state leaf
+              included; the maze_memory recording replayed exactly on the
+              card, its ``render_frame`` launches counted (memory mode has
+              no timed slice).
+13. genassets — generated assets: the background painter
               ``assetgen_bg`` against its plain version, byte for byte, on
               the draw blocks of 256 seeded streams and on a made-up block
               that takes the longest path, its time at 64 envs (a
@@ -123,11 +148,11 @@ the process exits non-zero):
               on the card and on the CPU for 50 steps, bit-equal, every
               state leaf included; the maze_genassets recording replayed
               exactly on the card.
-12. profile — 5 more steps of each slice under ``torch.profiler``:
+14. profile — 5 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-13. result  — a JSON line of the kernels (``render_suffix``,
+15. result  — a JSON line of the kernels (``render_suffix``,
               ``render_frame`` and ``assetgen_bg`` once for each path that
               launches them), the card line, and the last line ``{"ok":
               true, "device": {...}}``.
@@ -163,6 +188,11 @@ MINER_TIMED_STEPS = 150
 # of host-dispatched torch operations (about half a second)
 LEAPER_WARM_STEPS = 50
 LEAPER_TIMED_STEPS = 150
+# dodgeball's too: at ~300 ms a step on the card's host (a 64-env reset of
+# rejection rounds nearly every step) 400 steps took 131 s, and the whole
+# script 1,273 s, past its 1,200 s limit
+DODGEBALL_WARM_STEPS = 50
+DODGEBALL_TIMED_STEPS = 150
 # the centred gym3 envs: timed steps after 10 warm-up ones
 GYM_TIMED_STEPS = 100
 # the split and the profile run fewer steps than the slices (25 since the
@@ -401,7 +431,7 @@ def main():
 
 
 def run_phases(dev, card, np, torch):
-    """Phases 2 to 13."""
+    """Phases 2 to 15."""
     from procgen_tpu_torch import kernels
 
     # -- 2. build ----------------------------------------------------------
@@ -419,16 +449,18 @@ def run_phases(dev, card, np, torch):
                      plunder_phase(dev, card, np, torch),
                      entity_suffix_phase("leaper", (0, 1, 2), 31, dev, card, np, torch,
                                          LEAPER_WARM_STEPS, LEAPER_TIMED_STEPS),
-                     entity_suffix_phase("bigfish", (0, 1), 37, dev, card, np, torch))
-    rows = list(rows) + genassets_phase(dev, card, np, torch)
+                     entity_suffix_phase("bigfish", (0, 1), 37, dev, card, np, torch),
+                     dodgeball_phase(dev, card, np, torch))
+    rows = (list(rows) + [memory_phase(dev, card, np, torch)]
+            + genassets_phase(dev, card, np, torch))
 
-    # -- 12. profile: after every timed phase --------------------------------
+    # -- 14. profile: after every timed phase --------------------------------
     names = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
-             "bigfish")
+             "bigfish", "dodgeball")
     for name, run in zip(names, runs):
         profile_slice(name, *run, np, torch)
 
-    # -- 13. result ----------------------------------------------------------
+    # -- 15. result ----------------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -518,13 +550,16 @@ def profile_slice(name, carry, step, wall_ms, np, torch):
         for a in actions:
             carry, *_ = step(carry, a)
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the raw trace's device records: building the profiler's event tree
+    # (``prof.events()``) would take seconds a slice for the same numbers
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
     if not device:
         raise AssertionError(f"{name}: the profiler saw no device activity")
     by_name = collections.Counter()
     for e in device:
-        label = e.name.replace("(anonymous namespace)::", "").split("(")[0][:100]
-        by_name[label] += e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+        label = e.name().replace("(anonymous namespace)::", "").split("(")[0][:100]
+        by_name[label] += e.duration_ns() / 1e6 / PROFILE_STEPS
     device_ms = sum(by_name.values())
     log(name, f"profile of the {PROFILE_STEPS} steps after the slice: "
         f"{len(device) / PROFILE_STEPS:.1f} device records and {device_ms:.3f} "
@@ -535,12 +570,14 @@ def profile_slice(name, carry, step, wall_ms, np, torch):
 
 
 # the card-against-CPU runs, in the order the phases make them: (game,
-# every state leaf too, ``ProcgenGym3Env`` options); 64 envs, 50 steps each
+# every state leaf too, ``ProcgenGym3Env`` options, easy mode unless they
+# say otherwise); 64 envs, 50 steps each
 GEN = {"use_generated_assets": True}
+MEMORY = {"distribution_mode": "memory"}
 CPU_RUNS = (("maze", False, {}), ("miner", False, {}), ("coinrun", False, {}),
             ("fruitbot", False, {}), ("starpilot", True, {}), ("plunder", True, {}),
-            ("leaper", True, {}), ("bigfish", True, {}), ("maze", True, GEN),
-            ("coinrun", True, GEN))
+            ("leaper", True, {}), ("bigfish", True, {}), ("dodgeball", True, {}),
+            ("maze", True, MEMORY), ("maze", True, GEN), ("coinrun", True, GEN))
 CPU_STEPS = 50
 CPU_THREADS = 4
 _CPU = {}  # the CPU worker: its process, queue, the runs it sent, the next run
@@ -554,8 +591,8 @@ def gym_run(name, device, states, opts, np):
     from procgen_tpu_torch import ProcgenGym3Env
     from procgen_tpu_torch.bridge import state_to_numpy
 
-    env = ProcgenGym3Env(num=64, env_name=name, distribution_mode="easy", rand_seed=0,
-                         device=device, **opts)
+    env = ProcgenGym3Env(num=64, env_name=name, rand_seed=0, device=device,
+                         **{"distribution_mode": "easy", **opts})
     arng = np.random.RandomState(3)
     out = []
     for _ in range(CPU_STEPS):
@@ -1455,6 +1492,188 @@ def entity_suffix_phase(name, modes, edge_seed, dev, card, np, torch,
         "bound_by": b_by,
         "library_ms": None,
     }
+
+
+def dodgeball_phase(dev, card, np, torch):
+    """Dodgeball: the static-prefix kernel's decor instance at its largest
+    caps (72 entity slots, 16 dust clouds), with the lava walls tiled along
+    either axis and the rotation banks of the balls, the agent and the
+    enemies.  ``render_suffix`` against its plain version on the prep of
+    4096 easy states after 50 steps of the slice's program, of 4096 hard
+    and 4096 extreme states after 30, and on 4096 envs of edge-case slots
+    at those caps with made-up walls and bank rows; the slice, the
+    kernel's time and bound, card against CPU, the easy recording.
+    Returns ((carry, step, ms a step), the kernels line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.entry import make_env_fns
+    from procgen_tpu_torch.games.dodgeball import LAVA_WALL
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    plan = rk.get_plan(_game("dodgeball", 0))
+    atlas = plan.atlas(dev)
+    nz = len(plan.z_levels)
+    cap, dcap = plan.game.ENT_CAP, plan.game.DECOR_CAP
+
+    init, step, seeds = make_env_fns(NUM_ENVS, "dodgeball", device=dev)
+    carry = init(seeds)
+    rng = np.random.RandomState(1)
+    for _ in range(50):
+        acts = torch.as_tensor(rng.choice([9, 9, 1, 3, 5, 7, 4], size=NUM_ENVS), device=dev)
+        carry, obs, rew, done = step(carry, acts)
+    s = carry.states
+    ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+    if ent_f.shape[1] != cap or decor is None or decor.dec_f.shape[1] != dcap:
+        raise AssertionError(f"dodgeball: not the decor instance at caps {cap} + {dcap}")
+    err = suffix_check(s.frame.contiguous(), ent_f, ent_i, atlas, nz, decor,
+                       "dodgeball-easy states", rk, torch)
+    live = {0: int(s.ents.count.sum())}
+    clouds = {0: int(s.decor.count.sum())}
+    row = ent_i[..., rk.EI_ROW]
+    banked = {0: int(((row > plan.ent_atlas.transparent_row) & (row < plan.n1e)
+                      & (ent_i[..., rk.EI_LIVE] > 0)).sum())}
+    vertical = {0: int((ent_i[..., rk.EI_TILEV] > 0).sum())}
+    del carry, obs, s, ent_f, ent_i, decor
+    for mode in (1, 2):
+        game = _game("dodgeball", mode)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        for _ in range(30):
+            acts = torch.as_tensor(rng.choice([9, 9, 1, 3, 5, 7, 4], size=NUM_ENVS),
+                                   device=dev)
+            s, _ = lifecycle.env_step(game, s, acts)
+        mplan = rk.get_plan(game)
+        ent_f, ent_i, decor = rk.prep_suffix(mplan, s)
+        err = max(err, suffix_check(s.frame.contiguous(), ent_f, ent_i, mplan.atlas(dev),
+                                    nz, decor, f"dodgeball mode {mode} states", rk, torch))
+        live[mode], clouds[mode] = int(s.ents.count.sum()), int(s.decor.count.sum())
+        vertical[mode] = int((ent_i[..., rk.EI_TILEV] > 0).sum())
+        del s, ent_f, ent_i, decor
+
+    wall = int(plan.ent_atlas.row_for(torch.tensor([LAVA_WALL]), torch.tensor([0]))[0])
+    base, ent_f, ent_i, decor = rk.synthetic_wall_inputs(NUM_ENVS, plan, wall, seed=29)
+    err = max(err, suffix_check(base.to(dev), ent_f.to(dev), ent_i.to(dev), atlas, nz,
+                                decor.to(dev), "edge-case slots with walls and banks", rk,
+                                torch))
+    del base, ent_f, ent_i, decor
+    if min(vertical.values()) == 0 or banked[0] == 0:
+        raise AssertionError(f"dodgeball: no vertical walls ({vertical}) or no banked "
+                             f"sprites ({banked})")
+    log("dodgeball", f"render_suffix (decor instance) byte-equal: {NUM_ENVS} states of "
+        f"each mode (0, 1, 2) ({live} live slots, {clouds} dust clouds, {vertical} "
+        f"walls tiled along y, {banked} banked sprites in easy), {NUM_ENVS} envs of "
+        f"edge-case slots at caps {cap} + {dcap} with made-up walls tiled along x and "
+        f"y and bank rows; max_abs_err {err}")
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("dodgeball", dev, card, np, torch,
+                                               DODGEBALL_WARM_STEPS, DODGEBALL_TIMED_STEPS)
+    total = DODGEBALL_WARM_STEPS + DODGEBALL_TIMED_STEPS
+    if launches["render_suffix"] != total or launches["render_frame"] != 0:
+        raise AssertionError(f"dodgeball: launches {launches} in {total} steps")
+
+    # the kernel's time against the plain version's, on the slice's states
+    s = carry.states
+    base = s.frame.contiguous()
+    ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+    saved = dict(rk.LAUNCHES)
+    k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
+    p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor), 3)
+    k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
+    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor), 3)
+    rk.LAUNCHES.update(saved)
+    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    b_ms, b_by, b_work = suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch)
+    log("dodgeball", f"render_suffix (decor instance) at N={NUM_ENVS} "
+        f"({int(s.ents.count.sum())} live slots, {int(s.decor.count.sum())} dust clouds): "
+        f"kernel {kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, plain, kernel, "
+        f"plain: {k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}), bound {b_ms:.4f} ms ({b_by}; "
+        f"{b_work}), the kernel at {100 * b_ms / kernel_ms:.1f}% of it, on {card}; "
+        f"<true> instance at caps {cap} + {dcap}: {occupancy(rk.suffix_occupancy(cap, dcap))}")
+    del base, ent_f, ent_i, decor, s
+
+    keys = gpu_matches_cpu("dodgeball", np, torch, states=True)
+    checked = replay_on_card("dodgeball_easy")
+    log("dodgeball", f"64 envs x 50 steps: GPU and CPU bit-equal (obs, rewards, firsts, "
+        f"{', '.join(keys)}); dodgeball_easy replay exact ({checked} steps)")
+    return (carry, step, wall_ms), {
+        "name": "render_suffix",
+        "path": "dodgeball",
+        "route": "cuda",
+        "source": "procgen_tpu_torch/csrc/render_suffix.cu",
+        "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
+        "launches": launches["render_suffix"],
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+# memory mode's states for the kernel checks: (game, random steps after
+# the reset); miner's gravity sweep over its 35x35 world is a host loop of
+# small operations for every cell, so its states come after fewer steps
+MEMORY_STATES = (("maze", 20), ("miner", 3), ("dodgeball", 20))
+
+
+def memory_phase(dev, card, np, torch):
+    """Memory mode: the whole-frame kernel on the agent-centred window of
+    ``visibility + 3`` cells (11 for maze and miner, 19 for dodgeball with
+    both pools) against its plain version on the prep of 4096 memory
+    states of each game and on edge-case slots at dodgeball's caps in its
+    window; the kernel's time and bound on maze's and dodgeball's states;
+    64-env maze memory on the card against the CPU; the maze_memory
+    recording replayed on the card, the path's launches counted in it (no
+    timed slice).  Returns the kernels line's row."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core.constants import MEMORY_MODE
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    seeds = torch.as_tensor(np.random.RandomState(41).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    rng = np.random.RandomState(2)
+    err, timed, occ = 0, {}, {}
+    for name, steps in MEMORY_STATES:
+        game = _game(name, MEMORY_MODE)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        for _ in range(steps):
+            acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+            s, _ = lifecycle.env_step(game, s, acts)
+        plan = rk.get_plan(game)
+        x = rk.prep_frame(plan, s)
+        NC = x.gtab.shape[1]
+        if plan.static or NC != int(game.visibility) + 3:
+            raise AssertionError(f"{name} memory: window of {NC} cells")
+        err = max(err, frame_check(x, f"{name} memory states (NC = {NC})", rk, torch))
+        occ[name] = occupancy(rk.frame_occupancy(x))
+        if name != "miner":
+            timed[name] = (NC, int(s.ents.count.sum()), *time_frame(x, rk),
+                           *frame_bound(x, rk, torch))
+        if name == "dodgeball":
+            err = max(err, edge_frame_check(plan, game.ENT_CAP, game.DECOR_CAP, 43, rk,
+                                            torch))
+        del s, x
+    for name, (NC, live, k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
+        log("memory", f"render_frame ({name} memory, NC = {NC}) at N={NUM_ENVS} "
+            f"({live} live slots): kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms "
+            f"(kernel, plain, kernel, plain: {readings}), bound {b_ms:.4f} ms ({b_by}; "
+            f"{work}), the kernel at {100 * b_ms / k_ms:.1f}% of it, on {card}")
+    log("memory", f"render_frame byte-equal on {NUM_ENVS} memory states of "
+        f"{[n for n, _ in MEMORY_STATES]} and {NUM_ENVS} envs of edge-case slots at "
+        f"dodgeball's caps in its 19-cell window; max_abs_err {err}; instances: "
+        + "; ".join(f"{k}: {v}" for k, v in occ.items()))
+
+    keys = gpu_matches_cpu("maze", np, torch, states=True, **MEMORY)
+    zero_counts(rk)
+    checked = replay_on_card("maze_memory")
+    launches = dict(rk.LAUNCHES)
+    if launches["render_frame"] < checked or launches["render_suffix"] != 0:
+        raise AssertionError(f"maze memory: launches {launches} in {checked} steps")
+    log("memory", f"64 envs x 50 steps of maze memory: GPU and CPU bit-equal (obs, "
+        f"rewards, firsts, {', '.join(keys)}); maze_memory replay exact ({checked} "
+        f"steps, {launches['render_frame']} render_frame launches)")
+    NC, _, k_ms, p_ms, _, b_ms, b_by, _ = timed["maze"]
+    return frame_row("memory", launches, err, k_ms, p_ms, b_ms, b_by)
 
 
 def painter_ops(vals, torch):

@@ -11,7 +11,8 @@ window), the vectorised collision dispatch with the agent's grid probe
 and the entity-pair hook, erase of both pools, the spawn test over both
 pools (``spawn_blocked``), the grid reads and writes, the reset path's
 RNG helpers, the rejection placement of ``reposition``
-(``place_by_rejection``, batched over the envs), the sprite aspect-ratio
+(``place_by_rejection``, batched over the envs) and of
+``reposition_agent``, the sprite aspect-ratio
 fit and ``game_reset_base``, and the sequential reverse collision scan
 (``dispatch_sequential``) of the games whose handlers do not commute.
 The sequential entity scan and push chains are queued in ROADMAP.md.
@@ -1004,3 +1005,37 @@ def place_by_rejection(d: rng.Draws, blockers, rx, ry, x, y, w, h, do,
         px = torch.where(redo, px2, px)
         py = torch.where(redo, py2, py)
     return d, px, py
+
+
+def reposition_agent(d: rng.Draws, e: Entities, w: float, h: float,
+                     max_tries: int = 100):
+    """reposition_agent (plunder.cpp:540-548, dodgeball.cpp:341) on a
+    peeked window ``d``: draw the agent's centre in the ``w`` x ``h``
+    world, and redraw while it overlaps a live slot that is not the
+    player, at most ``max_tries`` times; masked rounds over the envs, one
+    host read a round.  Unlike ``reposition`` it always draws both
+    coordinates and sums the half-widths as ``agent.rx + e.rx +
+    e.collision_margin``.  The window must hold ``2 * (max_tries + 1)``
+    words past the cursor.  Returns (d, x, y), [N] each."""
+    rx0, ry0 = e.rx[:, 0], e.ry[:, 0]
+    span_x = w - 2 * rx0
+    span_y = h - 2 * ry0
+    reach_x = rx0[:, None] + e.rx + e.collision_margin
+    reach_y = ry0[:, None] + e.ry + e.collision_margin
+    blocks = e.active & (e.type != PLAYER)
+
+    def try_place(d, m):
+        d, r1 = d.rand01_if(m)
+        d, r2 = d.rand01_if(m)
+        return d, r1 * span_x + rx0, r2 * span_y + ry0
+
+    d, ax, ay = try_place(d, torch.ones_like(blocks[:, 0]))
+    for _ in range(max_tries):
+        redo = ((torch.abs(ax[:, None] - e.x) < reach_x)
+                & (torch.abs(ay[:, None] - e.y) < reach_y) & blocks).any(dim=1)
+        if not bool(redo.any()):
+            break
+        d, ax2, ay2 = try_place(d, redo)
+        ax = torch.where(redo, ax2, ax)
+        ay = torch.where(redo, ay2, ay)
+    return d, ax, ay

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 N = 624
@@ -58,17 +59,23 @@ def as_u32(v: torch.Tensor) -> torch.Tensor:
 
 def seed(s: torch.Tensor) -> MTState:
     """Seed exactly like std::mt19937::seed (init_genrand); ``s`` holds
-    one uint32 seed per env (any int dtype, taken modulo 2**32)."""
-    s = s.to(torch.int64) & MASK
-    n = s.shape[0]
-    cols = [s]
+    one uint32 seed per env (any int dtype, taken modulo 2**32).  The
+    recurrence's 623 sequential steps run over the batch in numpy on the
+    host (uint64: each product stays below 2**63), one copy each way,
+    rather than as some 3,100 small device operations."""
+    dev = s.device
+    x = s.detach().to("cpu", torch.int64).numpy().astype(np.uint64) & np.uint64(MASK)
+    n = x.shape[0]
+    cols = np.empty((N, n), np.uint64)
+    cols[0] = x
     for i in range(1, N):
-        prev = cols[-1]
-        cols.append((1812433253 * (prev ^ (prev >> 30)) + i) & MASK)
+        prev = cols[i - 1]
+        cols[i] = (np.uint64(1812433253) * (prev ^ (prev >> np.uint64(30)))
+                   + np.uint64(i)) & np.uint64(MASK)
     return MTState(
-        mt=torch.stack(cols, dim=1),
-        pos=torch.full((n,), N, dtype=torch.int32, device=s.device),
-        is_seeded=torch.ones((n,), dtype=torch.bool, device=s.device),
+        mt=torch.from_numpy(np.ascontiguousarray(cols.T).astype(np.int64)).to(dev),
+        pos=torch.full((n,), N, dtype=torch.int32, device=dev),
+        is_seeded=torch.ones((n,), dtype=torch.bool, device=dev),
     )
 
 

@@ -21,9 +21,9 @@ import math
 import torch
 
 from ..core import rng
-from ..core.constants import EASY_MODE, EXPLOSION, PLAYER
+from ..core.constants import EASY_MODE, EXPLOSION
 from ..core.entities import default_fields
-from ..core.game import BasicAbstractGame, BasicState, place_by_rejection
+from ..core.game import BasicAbstractGame, BasicState, place_by_rejection, reposition_agent
 from ..render.renderer import fdiv, rdiv
 from .registry import register
 
@@ -267,7 +267,7 @@ class Plunder(BasicAbstractGame):
         s = s.replace(ents=s.ents.push(lf))
 
         # the agent (plunder.cpp:175-190): its theme after a randn(1) that
-        # still takes a word
+        # still takes a word; reposition_agent's y is drawn and dropped
         d, th0 = d.randn(1)
         agent_theme = perm.gather(1, (th0 + 1).clamp(0, 5).long()[:, None])[:, 0]
         ar = self.aspect_of(SHIP, agent_theme.clamp(0, 5))
@@ -276,7 +276,7 @@ class Plunder(BasicAbstractGame):
             image_theme=agent_theme, ry=rdiv(r_scale, ar)))
         if int(d.cursor.max()) > rng.N - 2 * (MAX_TRIES + 1):
             d, norm = rng.peek_block(rng.commit(norm, d), rng.N)
-        d, ax = self._place_agent(d, s.ents)
+        d, ax, _ = reposition_agent(d, s.ents, 20.0, 20.0, MAX_TRIES)
         e = s.ents
         min_agent_x = 2 * legend_r + e.rx[:, 0]
         return s.replace(
@@ -293,37 +293,6 @@ class Plunder(BasicAbstractGame):
                 min_agent_x=min_agent_x,
             ),
         )
-
-    def _place_agent(self, d, e):
-        """reposition_agent (plunder.cpp:540-548): draw the agent's centre
-        in the 20x20 world, and redraw while it overlaps a live slot that
-        is not the player, at most ``MAX_TRIES`` times; masked rounds over
-        the envs, one host read a round.  Unlike ``reposition`` it always
-        draws both coordinates and sums the half-widths as ``agent.rx +
-        e.rx + e.collision_margin``.  Returns (d, x) of the placement; its
-        y is drawn and dropped, as in the reference."""
-        rx0, ry0 = e.rx[:, 0], e.ry[:, 0]
-        span_x = 20.0 - 2 * rx0
-        span_y = 20.0 - 2 * ry0
-        reach_x = rx0[:, None] + e.rx + e.collision_margin
-        reach_y = ry0[:, None] + e.ry + e.collision_margin
-        blocks = e.active & (e.type != PLAYER)
-
-        def try_place(d, m):
-            d, r1 = d.rand01_if(m)
-            d, r2 = d.rand01_if(m)
-            return d, r1 * span_x + rx0, r2 * span_y + ry0
-
-        d, ax, ay = try_place(d, torch.ones_like(blocks[:, 0]))
-        for _ in range(MAX_TRIES):
-            redo = ((torch.abs(ax[:, None] - e.x) < reach_x)
-                    & (torch.abs(ay[:, None] - e.y) < reach_y) & blocks).any(dim=1)
-            if not bool(redo.any()):
-                break
-            d, ax2, ay2 = try_place(d, redo)
-            ax = torch.where(redo, ax2, ax)
-            ay = torch.where(redo, ay2, ay)
-        return d, ax
 
     # -- per-step -------------------------------------------------------------
 

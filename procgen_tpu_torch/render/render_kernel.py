@@ -183,14 +183,11 @@ def supports(game, res: int = RES) -> bool:
     (``PALLAS_BG == "scroll"`` with starpilot's ``paint_background``), or
     each env's painted canvas under generated assets, cropped or tiled, z
     in (-1, 0, 1) in both pools, under the static camera or the
-    agent-centred one.  Monochrome sprites and memory mode's rules
-    (ROADMAP) are not ported."""
-    from ..core.constants import MEMORY_MODE
+    agent-centred one (memory mode's centred window of ``visibility + 3``
+    cells among them).  Monochrome sprites are not ported."""
     from ..core.game import BasicAbstractGame
 
     if res != RES or game.options.use_monochrome_assets:
-        return False
-    if game.options.distribution_mode == MEMORY_MODE:
         return False
     if type(game).paint_background is not BasicAbstractGame.paint_background:
         from ..games.starpilot import Starpilot
@@ -1054,6 +1051,56 @@ def synthetic_suffix_inputs(n: int, cap: int, dcap: int, n_rows: int,
     return base, ent_f, ent_i, decor
 
 
+def synthetic_wall_inputs(n: int, plan, wall_row: int, seed: int = 0):
+    """Made-up static-path inputs at the caps of ``plan``'s game (CPU
+    tensors): ``synthetic_suffix_inputs(edges=True)``, then, among the
+    entity slots, what dodgeball's states put on the kernels: about a
+    third become lava walls, long rectangles tiled along their long axis
+    (``EI_TILEH`` with ``w2 / h2`` tiles, or ``EI_TILEV`` with ``h2 / w2``)
+    on ``wall_row``, some over the frame's edges; another third sample the
+    rows of the plan's rotation banks, the rectangle grown as prep grows a
+    banked sprite's.  Returns (base, ent_f, ent_i, decor); built with numpy
+    from ``seed``."""
+    game = plan.game
+    base, ent_f, ent_i, decor = synthetic_suffix_inputs(
+        n, game.ENT_CAP, game.DECOR_CAP, 2 * plan.n1e, seed=seed, edges=True)
+    rng = np.random.RandomState(seed)
+    shape = tuple(ent_i.shape[:2])
+    kind = rng.randint(0, 3, shape)
+    vert = rng.rand(*shape) < 0.5
+    long_ = rng.uniform(4, 80, shape).astype(np.float32)
+    short = rng.uniform(1.5, 6, shape).astype(np.float32)
+    wall = torch.as_tensor(kind == 0)
+    w2 = torch.as_tensor(np.where(vert, short, long_))
+    h2 = torch.as_tensor(np.where(vert, long_, short))
+    ent_f[..., EF_W2] = torch.where(wall, w2, ent_f[..., EF_W2])
+    ent_f[..., EF_H2] = torch.where(wall, h2, ent_f[..., EF_H2])
+    ent_f[..., EF_X0] = torch.where(wall, torch.as_tensor(
+        rng.uniform(-30, 60, shape).astype(np.float32)), ent_f[..., EF_X0])
+    ent_f[..., EF_Y0] = torch.where(wall, torch.as_tensor(
+        rng.uniform(-30, 60, shape).astype(np.float32)), ent_f[..., EF_Y0])
+    tiles_h = torch.clamp_min((w2 / h2).to(i32), 1)
+    tiles_v = torch.clamp_min((h2 / w2).to(i32), 1)
+    vt = torch.as_tensor(vert)
+    for col, v in ((EI_ROW, wall_row), (EI_FB, 0), (EI_PFLIP, 0), (EI_QFLIP, 0),
+                   (EI_TILEH, (~vt).to(i32)), (EI_TILEV, vt.to(i32)),
+                   (EI_NTH, tiles_h), (EI_NTV, tiles_v)):
+        ent_i[..., col] = torch.where(wall, torch.as_tensor(v, dtype=i32), ent_i[..., col])
+    banks = np.arange(plan.ent_atlas.transparent_row + 1, plan.n1e)
+    if banks.size:
+        bank = torch.as_tensor(kind == 1)
+        ent_i[..., EI_ROW] = torch.where(bank, torch.as_tensor(
+            rng.choice(banks, shape).astype(np.int32)), ent_i[..., EI_ROW])
+        for col in (EI_FB, EI_PFLIP, EI_QFLIP, EI_TILEH, EI_TILEV):
+            ent_i[..., col] = torch.where(bank, 0, ent_i[..., col])
+        grow = torch.where(bank, ROT_OVERHANG, 1.0).to(f32)
+        for o, ext in ((EF_X0, EF_W2), (EF_Y0, EF_H2)):
+            ent_f[..., o] = ent_f[..., o] - ent_f[..., ext] * (grow - 1.0) * 0.5
+            ent_f[..., ext] = ent_f[..., ext] * grow
+    edge_envs_paint(ent_i)
+    return base, ent_f, ent_i, decor
+
+
 def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
                            ent_atlas, grid_opaque: int, seed: int = 0,
                            dcap: int = 0, bg_mode: int = BG_CROP,
@@ -1145,7 +1192,8 @@ def render_obs_batch(game, states, res: int = RES):
     path for CUDA states, its plain torch version for CPU states."""
     if not supports(game, res):
         raise NotImplementedError(
-            f"{game.name}: this frame path is not ported (ROADMAP Queue 2)"
+            f"{game.name}: the frame kernels do not take this frame (monochrome "
+            f"sprites, a custom background or cell colors, or its z levels)"
         )
     plan = get_plan(game, res)
     if plan.static:

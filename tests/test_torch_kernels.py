@@ -19,6 +19,7 @@ from procgen_tpu_torch.core.options import GameOptions
 from procgen_tpu_torch.core import lifecycle
 from procgen_tpu_torch.core.constants import INT32_MAX
 from procgen_tpu_torch.games.coinrun import Coinrun
+from procgen_tpu_torch.games.dodgeball import LAVA_WALL, Dodgeball
 from procgen_tpu_torch.games.fruitbot import Fruitbot
 from procgen_tpu_torch.games.maze import Maze
 from procgen_tpu_torch.games.miner import Miner
@@ -807,12 +808,16 @@ def test_frame_culling_is_exact():
 def test_kernel_shared_memory_fits_the_games():
     """Every ported path's block fits a block's shared memory, the largest
     (coinrun's whole world: a 64x64 row table, 48 + 96 slots) above the
-    default 48 KB; tiles past 254 px (the uint8 axis tables) are refused."""
+    default 48 KB; tiles past 254 px (the uint8 axis tables) are refused.
+    Memory mode's centred windows (maze and miner 11 cells, dodgeball 19
+    with 72 + 16 slots) and dodgeball's static path (72 + 16) fit too."""
     assert rk.frame_smem(64, 48, 96) > 48 * 1024
-    for NC, cap, dcap in ((64, 48, 96), (60, 112, 0), (16, 64, 32), (16, 2, 0)):
+    for NC, cap, dcap in ((64, 48, 96), (60, 112, 0), (16, 64, 32), (16, 2, 0),
+                          (11, 2, 0), (19, 72, 16)):
         assert rk.frame_smem(NC, cap, dcap) <= rk.SMEM_MAX
-    for cap, dcap in ((2, 0), (48, 24), (72, 160)):
+    for cap, dcap in ((2, 0), (48, 24), (72, 16), (72, 160)):
         assert rk.suffix_smem(cap, dcap) <= rk.SMEM_MAX
+    assert rk.suffix_smem(72, 16) > rk.suffix_smem(48, 24)
     base, ent_f, ent_i, _, decor = _synthetic_suffix(2, 3, 2)
     big = torch.zeros((2, 255, 255, 4), dtype=torch.uint8)
     with pytest.raises(ValueError, match="out of range"):
@@ -822,8 +827,20 @@ def test_kernel_shared_memory_fits_the_games():
         rk.render_frame(dataclasses.replace(x, ent_atlas=big))
 
 
+def _dodgeball_edge_inputs(n, seed, dev):
+    """Made-up static-path inputs at dodgeball's full caps (72 + 16): the
+    edge cases, with lava walls tiled along x and y and rotation-bank rows
+    among the entity slots."""
+    plan = rk.get_plan(Dodgeball(GameOptions(distribution_mode=0)))
+    wall = int(plan.ent_atlas.row_for(torch.tensor([LAVA_WALL]), torch.tensor([0]))[0])
+    base, ent_f, ent_i, decor = rk.synthetic_wall_inputs(n, plan, wall, seed=seed)
+    return base.to(dev), ent_f.to(dev), ent_i.to(dev), plan.atlas(dev), decor.to(dev)
+
+
 def _edge_inputs(case, n, dev):
     """Made-up inputs with the edge cases at a game's full caps."""
+    if case == "dodgeball":
+        return _dodgeball_edge_inputs(n, 24, dev)
     if case in ("maze", "plunder"):
         atlas = rk.get_plan(_plunder()).atlas(dev)
         if case == "maze":  # the entity-only instance, fruitbot's cap
@@ -847,15 +864,15 @@ def _edge_inputs(case, n, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["maze", "plunder", "miner", "coinrun", "fruitbot",
-                                  "starpilot"])
+@pytest.mark.parametrize("case", ["maze", "plunder", "dodgeball", "miner", "coinrun",
+                                  "fruitbot", "starpilot"])
 def test_cuda_kernels_match_plain_version_on_edge_slots(case):
     """Both kernels on the edge cases at full caps (masks of several words),
     byte-equal to their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     x = _edge_inputs(case, 256, torch.device("cuda"))
-    if case in ("maze", "plunder"):
+    if case in ("maze", "plunder", "dodgeball"):
         base, ent_f, ent_i, atlas, decor = x
         got = rk.render_suffix(base, ent_f, ent_i, atlas, 2, decor)
         want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor)

@@ -29,7 +29,9 @@ bigfish's fish radius and speed (``Bigfish.game_step``), starpilot's
 spawner headings and velocities (``Starpilot.game_reset``) and plunder's
 lane speeds (``Plunder.game_reset``) are evaluated in f64 under
 ``jax.enable_x64`` and rounded once to f32, each expression replaced by
-its text, and nothing else of the package changes.  XLA's f64 ``pow``,
+its text; dodgeball's ball spin (``BALL_V_ROT``) and its dust cloud's
+spin and growth take the C++ float constants (``CPP_F32``, products and
+quotients of f32 operands); nothing else of the package changes.  XLA's f64 ``pow``,
 ``sin`` and ``cos`` on the CPU are glibc's (``test_patched_f64_is_glibc``).
 
 Tolerance: zero.
@@ -54,7 +56,7 @@ from procgen_tpu_torch import ProcgenGym3Env  # noqa: E402
 from procgen_tpu_torch.bridge import state_from_numpy  # noqa: E402
 
 GAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder",
-         "leaper", "bigfish"]
+         "leaper", "bigfish", "dodgeball"]
 # the fields the C++ bytes do not carry
 NOT_IN_BYTES = {"frame", "bg_canvas", "total_reward", "step_draws",
                 "reset_count"}
@@ -99,6 +101,20 @@ _PATCHES = {
         ("lane_vels.at[i].set(0.15 + 0.1 * v01)",
          "lane_vels.at[i].set(CPP_F64['lane_vel'](v01))"),
     ],
+    ("procgen_tpu.games.dodgeball", "Dodgeball", "dispatch_entity_pairs"): [
+        ('f["vrot"] = PI / 0.3', 'f["vrot"] = CPP_F32["dust_vrot"]'),
+        ('f["grow_rate"] = 1.0 / 1.2', 'f["grow_rate"] = CPP_F32["dust_grow"]'),
+    ],
+}
+
+# C++ float constants of f32 operands, each rounded once from f32: the
+# JAX package takes them from Python doubles.  Dodgeball's ball spin
+# ``PI * .23`` is an ulp off that way; the dust cloud's spin and growth
+# give the same bits either way.
+CPP_F32 = {
+    "ball_vrot": float(np.float32(PI_F) * np.float32(0.23)),
+    "dust_vrot": float(np.float32(PI_F) / np.float32(0.3)),
+    "dust_grow": float(np.float32(1.0) / np.float32(1.2)),
 }
 
 
@@ -117,7 +133,7 @@ def _patched_methods():
         for old, new in edits:
             assert src.count(old) == 1, (cls_name, meth, old)
             src = src.replace(old, new)
-        ns = dict(vars(mod), CPP_F64=CPP_F64)
+        ns = dict(vars(mod), CPP_F64=CPP_F64, CPP_F32=CPP_F32)
         exec(compile(src, inspect.getsourcefile(cls), "exec"), ns)
         out[cls, meth] = ns[meth]
     return out
@@ -134,9 +150,11 @@ def patch_jax_cpp_arithmetic():
     expressions in ``CPP_F64`` (the module docstring).  Call it in a JAX
     child process before anything is traced, never in the test process:
     the other test files hold the package as it is."""
+    import procgen_tpu.games.dodgeball as jdodgeball
     from procgen_tpu.core.game import BasicAbstractGame
 
     BasicAbstractGame.decay_agent_velocity = _decay_agent_velocity
+    jdodgeball.BALL_V_ROT = CPP_F32["ball_vrot"]
     for (cls, meth), fn in _patched_methods().items():
         setattr(cls, meth, fn)
 

@@ -183,16 +183,15 @@ def test_frame_matches_render_obs(which, cases):
 
 
 def test_supports_the_ported_paths_only():
-    """The whole-frame path takes miner easy and hard; the centred camera
-    (memory mode) and monochrome sprites still raise."""
-    for mode in (0, 1):
+    """The whole-frame path takes miner easy, hard and memory (the centred
+    window of 11 cells); monochrome sprites still raise."""
+    for mode in (0, 1, 10):
         assert rk.supports(TMiner(GameOptions(distribution_mode=mode)))
-    memory = TMiner(GameOptions(distribution_mode=10))
+    assert rk.get_plan(TMiner(GameOptions(distribution_mode=10))).NC == 11
     mono = TMiner(GameOptions(distribution_mode=0, use_monochrome_assets=True))
-    for g in (memory, mono):
-        assert not rk.supports(g)
-        with pytest.raises(NotImplementedError):
-            rk.render_obs_batch(g, _states(g, 0, 0))
+    assert not rk.supports(mono)
+    with pytest.raises(NotImplementedError, match="monochrome"):
+        rk.render_obs_batch(mono, _states(mono, 0, 0))
 
 
 # ---------------------------------------------------------------------------
