@@ -12,8 +12,8 @@ the process exits non-zero):
 3. maze     — the static-prefix kernel ``render_suffix`` against its plain
               torch version, byte for byte, on the prep of 4096 maze states
               after 50 random steps and on a made-up batch; the slice
-              ``entry.make_env_fns(4096, "maze", device="cuda")``: 100
-              warm-up and 300 timed steps, one ``render_suffix`` launch a
+              ``entry.make_env_fns(4096, "maze", device="cuda")``: 50
+              warm-up and 150 timed steps (every slice's), one ``render_suffix`` launch a
               step, env-steps/s, a per-layer split, the kernel's time
               against the plain version's and its bound; a 64-env
               ``ProcgenGym3Env`` for 50 steps on the card and on the CPU,
@@ -33,7 +33,7 @@ the process exits non-zero):
               and under the agent-centred one, of 4096 coinrun-hard
               states, and on a made-up batch with both pools full; the
               slice ``make_env_fns(4096, "coinrun", device="cuda")``, one
-              ``render_frame`` launch a step; 100 timed steps of a
+              ``render_frame`` launch a step; 50 timed steps of a
               4096-env ``ProcgenGym3Env`` (agent-centred, the default); a
               64-env one for 50 steps on the card and on the CPU,
               bit-equal; the coinrun_easy recording replayed exactly on
@@ -45,7 +45,7 @@ the process exits non-zero):
               on a made-up tiled batch; the slice ``make_env_fns(4096,
               "fruitbot", device="cuda")``, one ``render_frame`` launch a
               step; the kernel's time on easy under both cameras and on
-              hard; 100 timed steps of a 4096-env centred
+              hard; 50 timed steps of a 4096-env centred
               ``ProcgenGym3Env``; a 64-env one for 50 steps on the card
               and on the CPU, bit-equal; the fruitbot_easy recording
               replayed exactly on the card.
@@ -64,7 +64,7 @@ the process exits non-zero):
               under both cameras, of 4096 hard and 4096 extreme states and
               on a made-up scrolled batch; the slice ``make_env_fns(4096,
               "starpilot", device="cuda")``, one ``render_frame`` launch a
-              step; the kernel's time under both cameras; 100 timed steps
+              step; the kernel's time under both cameras; 50 timed steps
               of a 4096-env centred ``ProcgenGym3Env``; a 64-env one for 50
               steps on the card and on the CPU, bit-equal, every state leaf
               included; the starpilot_easy recording replayed exactly on
@@ -98,8 +98,8 @@ the process exits non-zero):
               the leaper_easy recording replayed exactly on the card.
 10. bigfish — the same for bigfish (cap 40, the fish reflected and
               growing; hard states after 20 steps): its slice runs the
-              sequential reverse collision scan, 100 warm-up and 300 timed
-              steps; the bigfish_easy recording replayed on the card.
+              sequential reverse collision scan; the bigfish_easy recording
+              replayed on the card.
 11. dodgeball — the static-prefix kernel's decor instance at dodgeball's
               caps (72 entity slots, 16 dust clouds; lava walls tiled
               along x and along y, the rotation banks of the balls, the
@@ -114,7 +114,36 @@ the process exits non-zero):
               occupancy; a 64-env ``ProcgenGym3Env`` for 50 steps on the
               card and on the CPU, bit-equal, every state leaf included;
               the dodgeball_easy recording replayed exactly on the card.
-12. memory  — memory mode's centred whole frame: ``render_frame`` on the
+12. bossfight — the static-prefix kernel's decor instance at the largest
+              pools a game has (72 entity slots, 160 laser trails and
+              explosions: 69,104 B of dynamic shared memory a block; the
+              enemy bullets and their trails on the rotation banks): the
+              slice ``make_env_fns(4096, "bossfight", device="cuda")``, 50
+              warm-up and 150 timed steps, one ``render_suffix`` launch a
+              step; then the kernel against its plain version, byte for
+              byte, on the prep of the slice's 4096 easy states, of 4096
+              hard states after 30 steps, and on 4096 envs of edge-case
+              slots at those caps with made-up tiled slots and bank rows;
+              the instance's registers, spills, shared memory and blocks
+              an SM; the kernel's time and bound on the slice's states; a
+              64-env ``ProcgenGym3Env`` for 50
+              steps on the card and on the CPU, bit-equal, every state leaf
+              included; the bossfight_easy recording replayed exactly on
+              the card.
+13. climber — the slice ``make_env_fns(4096, "climber",
+              device="cuda")``, 50 warm-up and 150 timed steps, one
+              ``render_frame`` launch a step; then ``render_frame`` under
+              the game's own camera against its plain version, byte for
+              byte, on the prep of the slice's 4096 easy states and of 4096
+              hard states after 20 steps, each under the whole-world camera
+              (a 64-cell window) and the centred one (the world's width in
+              view, a 19-cell window), and on 4096 envs of edge-case slots
+              in the centred window; the kernel's time and bound under both
+              cameras on the slice's states; 50 timed steps of a 4096-env centred
+              ``ProcgenGym3Env``; a 64-env one for 50 steps on the card and
+              on the CPU, bit-equal, every state leaf included; the
+              climber_easy recording replayed exactly on the card.
+14. memory  — memory mode's centred whole frame: ``render_frame`` on the
               window of ``visibility + 3`` cells (11 for maze and miner, 19
               for dodgeball with both pools) against its plain version,
               byte for byte, on the prep of 4096 memory states of each
@@ -125,7 +154,7 @@ the process exits non-zero):
               included; the maze_memory recording replayed exactly on the
               card, its ``render_frame`` launches counted (memory mode has
               no timed slice).
-13. genassets — generated assets: the background painter
+15. genassets — generated assets: the background painter
               ``assetgen_bg`` against its plain version, byte for byte, on
               the draw blocks of 256 seeded streams and on a made-up block
               that takes the longest path, its time at 64 envs (a
@@ -148,11 +177,11 @@ the process exits non-zero):
               on the card and on the CPU for 50 steps, bit-equal, every
               state leaf included; the maze_genassets recording replayed
               exactly on the card.
-14. profile — 5 more steps of each slice under ``torch.profiler``:
+16. profile — 5 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-15. result  — a JSON line of the kernels (``render_suffix``,
+17. result  — a JSON line of the kernels (``render_suffix``,
               ``render_frame`` and ``assetgen_bg`` once for each path that
               launches them), the card line, and the last line ``{"ok":
               true, "device": {...}}``.
@@ -176,30 +205,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 NUM_ENVS = 4096
-# the slices run the bench protocol's 100 warm-up and 300 timed steps
-WARM_STEPS = 100
-TIMED_STEPS = 300
-# miner's slice runs fewer steps: its step is the slowest, and the script
-# must stay well inside its time limit now that coinrun runs too
-MINER_WARM_STEPS = 50
-MINER_TIMED_STEPS = 150
-# leaper's as many as miner's: it replenishes a 64-env chunk nearly every
-# step, and each of its resets pre-rolls the lanes for 200-360 iterations
-# of host-dispatched torch operations (about half a second)
-LEAPER_WARM_STEPS = 50
-LEAPER_TIMED_STEPS = 150
-# dodgeball's too: at ~300 ms a step on the card's host (a 64-env reset of
-# rejection rounds nearly every step) 400 steps took 131 s, and the whole
-# script 1,273 s, past its 1,200 s limit
-DODGEBALL_WARM_STEPS = 50
-DODGEBALL_TIMED_STEPS = 150
-# the centred gym3 envs: timed steps after 10 warm-up ones
-GYM_TIMED_STEPS = 100
-# the split and the profile run fewer steps than the slices (25 since the
-# generated-assets phase came in, and 5), to keep the script well inside
-# its limit on a slow host
+# every slice runs 50 warm-up and 150 timed steps, and the centred gym3
+# envs 50 timed steps after 10: with eight slices at the bench protocol's
+# 100 + 300 and the gym3 envs at 100, the whole script took 1,100.6 s on a
+# host where maze takes 39.6 ms a step and 1,280 s, past its 1,200 s
+# limit, on one where it takes 52.6 ms
+WARM_STEPS = 50
+TIMED_STEPS = 150
+GYM_TIMED_STEPS = 50
+# the generated-assets gym3 env is timed over 100 steps, in alternating
+# windows with the env without generated assets
+GENASSETS_TIMED_STEPS = 100
+# the split and the profile run fewer steps than the slices, to keep the
+# script inside its limit on a slow host
 PROFILE_STEPS = 5
-SPLIT_STEPS = 25
+SPLIT_STEPS = 15
+# timed calls of a plain version, after one untimed, in each of its two
+# turns: up to 0.9 s a call (bossfight's 232 slots), and the readings of
+# a turn agree to 0.2%
+PLAIN_ITERS = 1
 T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -390,9 +414,24 @@ def time_frame(x, rk):
     launches are not counted."""
     saved = dict(rk.LAUNCHES)
     k1 = cuda_ms(lambda: rk.render_frame(x), 200)
-    p1 = cuda_ms(lambda: rk.render_frame_reference(x), 3)
+    p1 = cuda_ms(lambda: rk.render_frame_reference(x), PLAIN_ITERS)
     k2 = cuda_ms(lambda: rk.render_frame(x), 200)
-    p2 = cuda_ms(lambda: rk.render_frame_reference(x), 3)
+    p2 = cuda_ms(lambda: rk.render_frame_reference(x), PLAIN_ITERS)
+    rk.LAUNCHES.update(saved)
+    return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}"
+
+
+def suffix_times(base, ent_f, ent_i, atlas, nz, decor, rk):
+    """render_suffix and render_suffix_reference on these inputs in turns
+    (kernel, plain, kernel, plain): mean ms of each and the four readings.
+    The launches are not counted."""
+    saved = dict(rk.LAUNCHES)
+    k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
+    p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor),
+                 PLAIN_ITERS)
+    k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
+    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor),
+                 PLAIN_ITERS)
     rk.LAUNCHES.update(saved)
     return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}"
 
@@ -431,7 +470,7 @@ def main():
 
 
 def run_phases(dev, card, np, torch):
-    """Phases 2 to 15."""
+    """Phases 2 to 17."""
     from procgen_tpu_torch import kernels
 
     # -- 2. build ----------------------------------------------------------
@@ -447,20 +486,21 @@ def run_phases(dev, card, np, torch):
                      fruitbot_phase(dev, card, np, torch),
                      starpilot_phase(dev, card, np, torch),
                      plunder_phase(dev, card, np, torch),
-                     entity_suffix_phase("leaper", (0, 1, 2), 31, dev, card, np, torch,
-                                         LEAPER_WARM_STEPS, LEAPER_TIMED_STEPS),
+                     entity_suffix_phase("leaper", (0, 1, 2), 31, dev, card, np, torch),
                      entity_suffix_phase("bigfish", (0, 1), 37, dev, card, np, torch),
-                     dodgeball_phase(dev, card, np, torch))
+                     dodgeball_phase(dev, card, np, torch),
+                     bossfight_phase(dev, card, np, torch),
+                     climber_phase(dev, card, np, torch))
     rows = (list(rows) + [memory_phase(dev, card, np, torch)]
             + genassets_phase(dev, card, np, torch))
 
-    # -- 14. profile: after every timed phase --------------------------------
+    # -- 16. profile: after every timed phase --------------------------------
     names = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
-             "bigfish", "dodgeball")
+             "bigfish", "dodgeball", "bossfight", "climber")
     for name, run in zip(names, runs):
         profile_slice(name, *run, np, torch)
 
-    # -- 15. result ----------------------------------------------------------
+    # -- 17. result ----------------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -483,7 +523,7 @@ def _game(name, mode):
 
 def run_slice(name, dev, card, np, torch, warm=WARM_STEPS, timed=TIMED_STEPS):
     """The main path of one game: ``make_env_fns(4096, name)``, ``warm``
-    warm-up and ``timed`` timed steps (100 and 300 unless given), launch
+    warm-up and ``timed`` timed steps (50 and 150 unless given), launch
     counts zeroed just before and read just after.  Returns (carry,
     launches, step, ms a timed step)."""
     from procgen_tpu_torch.entry import make_env_fns
@@ -577,6 +617,7 @@ MEMORY = {"distribution_mode": "memory"}
 CPU_RUNS = (("maze", False, {}), ("miner", False, {}), ("coinrun", False, {}),
             ("fruitbot", False, {}), ("starpilot", True, {}), ("plunder", True, {}),
             ("leaper", True, {}), ("bigfish", True, {}), ("dodgeball", True, {}),
+            ("bossfight", True, {}), ("climber", True, {}),
             ("maze", True, MEMORY), ("maze", True, GEN), ("coinrun", True, GEN))
 CPU_STEPS = 50
 CPU_THREADS = 4
@@ -875,9 +916,8 @@ def miner_phase(dev, card, np, torch):
         f"max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice(
-        "miner", dev, card, np, torch, MINER_WARM_STEPS, MINER_TIMED_STEPS)
-    total = MINER_WARM_STEPS + MINER_TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("miner", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"miner: launches {launches} in {total} steps")
 
@@ -1352,18 +1392,12 @@ def plunder_phase(dev, card, np, torch):
     s = carry.states
     base = s.frame.contiguous()
     ent_f, ent_i, decor = rk.prep_suffix(plan, s)
-    saved = dict(rk.LAUNCHES)
-    k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
-    p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor), 3)
-    k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
-    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor), 3)
-    rk.LAUNCHES.update(saved)
-    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    kernel_ms, plain_ms, readings = suffix_times(base, ent_f, ent_i, atlas, nz, decor, rk)
     b_ms, b_by, b_work = suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch)
     log("plunder", f"render_suffix (decor instance) at N={NUM_ENVS} ({int(s.ents.count.sum())} "
         f"live slots, {int(s.decor.count.sum())} explosions): kernel {kernel_ms:.4f} ms, "
-        f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel, plain: {k1:.4f}, "
-        f"{p1:.4f}, {k2:.4f}, {p2:.4f}), bound {b_ms:.4f} ms ({b_by}; {b_work}) "
+        f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel, plain: {readings}), "
+        f"bound {b_ms:.4f} ms ({b_by}; {b_work}) "
         f"on {card}; <true> instance: "
         f"{occupancy(rk.suffix_occupancy(ent_f.shape[1], decor.dec_f.shape[1]))}")
     del base, ent_f, ent_i, decor, s
@@ -1456,19 +1490,13 @@ def entity_suffix_phase(name, modes, edge_seed, dev, card, np, torch,
     s = carry.states
     base = s.frame.contiguous()
     ent_f, ent_i, _ = rk.prep_suffix(plan, s)
-    saved = dict(rk.LAUNCHES)
-    k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz), 200)
-    p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz), 5)
-    k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz), 200)
-    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz), 5)
-    rk.LAUNCHES.update(saved)
-    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    kernel_ms, plain_ms, readings = suffix_times(base, ent_f, ent_i, atlas, nz, None, rk)
     b_ms, b_by, b_work = suffix_bound(base, ent_f, ent_i, atlas, nz, None, rk, torch,
                                       count=s.ents.count)
     log(name, f"render_suffix (entity-only instance) at N={NUM_ENVS} "
         f"({int(s.ents.count.sum())} live slots of {NUM_ENVS * cap}): kernel "
         f"{kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, plain, kernel, "
-        f"plain: {k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}), bound {b_ms:.4f} ms "
+        f"plain: {readings}), bound {b_ms:.4f} ms "
         f"({b_by}; {b_work}), the kernel at {100 * b_ms / kernel_ms:.1f}% of it, on "
         f"{card}; <false> instance at cap {cap}: "
         f"{occupancy(rk.suffix_occupancy(cap, 0))}")
@@ -1564,9 +1592,8 @@ def dodgeball_phase(dev, card, np, torch):
         f"y and bank rows; max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("dodgeball", dev, card, np, torch,
-                                               DODGEBALL_WARM_STEPS, DODGEBALL_TIMED_STEPS)
-    total = DODGEBALL_WARM_STEPS + DODGEBALL_TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("dodgeball", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_suffix"] != total or launches["render_frame"] != 0:
         raise AssertionError(f"dodgeball: launches {launches} in {total} steps")
 
@@ -1574,18 +1601,12 @@ def dodgeball_phase(dev, card, np, torch):
     s = carry.states
     base = s.frame.contiguous()
     ent_f, ent_i, decor = rk.prep_suffix(plan, s)
-    saved = dict(rk.LAUNCHES)
-    k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
-    p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor), 3)
-    k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
-    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor), 3)
-    rk.LAUNCHES.update(saved)
-    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    kernel_ms, plain_ms, readings = suffix_times(base, ent_f, ent_i, atlas, nz, decor, rk)
     b_ms, b_by, b_work = suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch)
     log("dodgeball", f"render_suffix (decor instance) at N={NUM_ENVS} "
         f"({int(s.ents.count.sum())} live slots, {int(s.decor.count.sum())} dust clouds): "
         f"kernel {kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, plain, kernel, "
-        f"plain: {k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}), bound {b_ms:.4f} ms ({b_by}; "
+        f"plain: {readings}), bound {b_ms:.4f} ms ({b_by}; "
         f"{b_work}), the kernel at {100 * b_ms / kernel_ms:.1f}% of it, on {card}; "
         f"<true> instance at caps {cap} + {dcap}: {occupancy(rk.suffix_occupancy(cap, dcap))}")
     del base, ent_f, ent_i, decor, s
@@ -1609,6 +1630,199 @@ def dodgeball_phase(dev, card, np, torch):
         "library_ms": None,
     }
 
+
+def bossfight_phase(dev, card, np, torch):
+    """Bossfight: the static-prefix kernel's decor instance at the largest
+    pools a game has (72 entity slots, 160 laser trails and explosions:
+    69,104 B of dynamic shared memory a block), the enemy bullets and
+    their trails on the rotation banks.  The slice first; then
+    ``render_suffix`` against its plain version on the prep of its 4096
+    easy states, of 4096 hard states after 30 steps, and on 4096 envs of
+    edge-case slots at those caps with made-up tiled slots and bank rows;
+    the instance's occupancy, the kernel's time and bound on the slice's
+    states, card against CPU, the easy recording.  Returns ((carry, step,
+    ms a step), the kernels line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.games.bossfight import BARRIER
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    plan = rk.get_plan(_game("bossfight", 0))
+    atlas = plan.atlas(dev)
+    nz = len(plan.z_levels)
+    cap, dcap = plan.game.ENT_CAP, plan.game.DECOR_CAP
+    occ = rk.suffix_occupancy(cap, dcap)
+    if occ["smem_bytes"] != rk.suffix_smem(cap, dcap) or occ["blocks_per_sm"] < 1:
+        raise AssertionError(f"bossfight: the <true> instance at caps {cap} + {dcap}: {occ}")
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("bossfight", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_suffix"] != total or launches["render_frame"] != 0:
+        raise AssertionError(f"bossfight: launches {launches} in {total} steps")
+
+    # kernel vs plain version: the slice's easy states, hard states after
+    # 30 steps, edge-case slots at the caps
+    def banked(ent_i):
+        row = ent_i[..., rk.EI_ROW]
+        return int(((row > plan.ent_atlas.transparent_row) & (row < plan.n1e)
+                    & (ent_i[..., rk.EI_LIVE] > 0)).sum())
+
+    s = carry.states
+    ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+    if ent_f.shape[1] != cap or decor is None or decor.dec_f.shape[1] != dcap:
+        raise AssertionError(f"bossfight: not the decor instance at caps {cap} + {dcap}")
+    err = suffix_check(s.frame.contiguous(), ent_f, ent_i, atlas, nz, decor,
+                       "bossfight-easy states", rk, torch)
+    live = {0: int(s.ents.count.sum())}
+    trails = {0: int(s.decor.count.sum())}
+    most = {0: int(s.decor.count.max())}
+    banks = {0: banked(ent_i) + banked(decor.dec_i)}
+    del ent_f, ent_i, decor
+    game = _game("bossfight", 1)
+    seeds = torch.as_tensor(np.random.RandomState(47).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    hs = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+    rng = np.random.RandomState(1)
+    for _ in range(30):
+        acts = torch.as_tensor(rng.choice([9, 9, 1, 3, 5, 7, 4], size=NUM_ENVS), device=dev)
+        hs, _ = lifecycle.env_step(game, hs, acts)
+    hplan = rk.get_plan(game)
+    ent_f, ent_i, decor = rk.prep_suffix(hplan, hs)
+    err = max(err, suffix_check(hs.frame.contiguous(), ent_f, ent_i, hplan.atlas(dev), nz,
+                                decor, "bossfight-hard states", rk, torch))
+    live[1], trails[1] = int(hs.ents.count.sum()), int(hs.decor.count.sum())
+    most[1], banks[1] = int(hs.decor.count.max()), banked(ent_i) + banked(decor.dec_i)
+    del hs, ent_f, ent_i, decor
+
+    meteor = int(plan.ent_atlas.row_for(torch.tensor([BARRIER]), torch.tensor([0]))[0])
+    base, ent_f, ent_i, decor = rk.synthetic_wall_inputs(NUM_ENVS, plan, meteor, seed=47)
+    err = max(err, suffix_check(base.to(dev), ent_f.to(dev), ent_i.to(dev), atlas, nz,
+                                decor.to(dev), "edge-case slots at caps 72 + 160", rk, torch))
+    del base, ent_f, ent_i, decor
+    if min(banks.values()) == 0 or min(most.values()) < 8:
+        raise AssertionError(f"bossfight: no banked sprites ({banks}) or few trails ({most})")
+    log("bossfight", f"render_suffix (decor instance) byte-equal: {NUM_ENVS} states of "
+        f"each mode (0: the slice's, 1: after 30 steps) ({live} live slots, {trails} "
+        f"trails and explosions, at most {most} in an env, {banks} banked sprites), "
+        f"{NUM_ENVS} envs of edge-case slots at caps {cap} + {dcap} with made-up tiled "
+        f"slots and bank rows; max_abs_err {err}; <true> instance at caps {cap} + "
+        f"{dcap}: {occupancy(occ)}")
+
+    # the kernel's time against the plain version's, on the slice's states
+    base = s.frame.contiguous()
+    ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+    kernel_ms, plain_ms, readings = suffix_times(base, ent_f, ent_i, atlas, nz, decor, rk)
+    b_ms, b_by, b_work = suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch)
+    log("bossfight", f"render_suffix (decor instance) at N={NUM_ENVS} "
+        f"({int(s.ents.count.sum())} live slots, {int(s.decor.count.sum())} trails and "
+        f"explosions): kernel {kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, "
+        f"plain, kernel, plain: {readings}), bound {b_ms:.4f} ms ({b_by}; {b_work}), the "
+        f"kernel at {100 * b_ms / kernel_ms:.1f}% of it, on {card}")
+    del base, ent_f, ent_i, decor, s
+
+    keys = gpu_matches_cpu("bossfight", np, torch, states=True)
+    checked = replay_on_card("bossfight_easy")
+    log("bossfight", f"64 envs x 50 steps: GPU and CPU bit-equal (obs, rewards, firsts, "
+        f"{', '.join(keys)}); bossfight_easy replay exact ({checked} steps)")
+    return (carry, step, wall_ms), {
+        "name": "render_suffix",
+        "path": "bossfight",
+        "route": "cuda",
+        "source": "procgen_tpu_torch/csrc/render_suffix.cu",
+        "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
+        "launches": launches["render_suffix"],
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def climber_phase(dev, card, np, torch):
+    """Climber: the whole-frame kernel under the game's own camera.  The
+    slice first; then ``render_frame`` against its plain version on the
+    prep of its 4096 easy states and of 4096 hard states after 20 steps,
+    each under the whole-world camera (a 64-cell window) and the centred
+    one (the world's width in view, a 19-cell window), and on 4096 envs of
+    edge-case slots in the centred window; the kernel's time and bound
+    under both cameras on the slice's states, the centred
+    ``ProcgenGym3Env``, card against CPU, the easy recording.  Returns
+    ((carry, step, ms a step), the kernels line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core.constants import INT32_MAX
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.games.climber import Climber
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    def game_of(mode, centred):
+        game = Climber(GameOptions(distribution_mode=mode, center_agent=centred))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        return game
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("climber", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"climber: launches {launches} in {total} steps")
+
+    # kernel vs plain version under both cameras: the slice's easy states,
+    # hard states after 20 steps, edge-case slots in the centred window
+    hard = game_of(1, False)
+    seeds = torch.as_tensor(np.random.RandomState(53).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    hs = lifecycle.env_reset(hard, lifecycle.initial_state(hard, seeds))
+    rng = np.random.RandomState(1)
+    for _ in range(20):
+        acts = torch.as_tensor(rng.choice([2, 5, 8, 8, 6, 0, 4], size=NUM_ENVS), device=dev)
+        hs, _ = lifecycle.env_step(hard, hs, acts)
+    err, windows, xs = 0, {}, {}
+    for mode, st in ((0, carry.states), (1, hs)):
+        for centred in (False, True):
+            plan = rk.get_plan(game_of(mode, centred))
+            x = rk.prep_frame(plan, st)
+            windows[(mode, centred)] = (x.gtab.shape[1], float(x.sf[0, rk.SF_VIS]))
+            err = max(err, frame_check(x, f"climber mode {mode} states, "
+                                          f"{'centred' if centred else 'whole world'}",
+                                       rk, torch))
+            if mode == 0:
+                xs[centred] = x
+    live = {0: int(carry.states.ents.count.sum()), 1: int(hs.ents.count.sum())}
+    del hs, x
+    if windows[(0, False)][0] != 64 or windows[(0, True)] != (19, 16.0) \
+            or windows[(1, True)] != (19, 20.0):
+        raise AssertionError(f"climber: windows (NC, view) {windows}")
+    cplan = rk.get_plan(game_of(0, True))
+    err = max(err, edge_frame_check(cplan, cplan.game.ENT_CAP, 0, 53, rk, torch))
+    log("climber", f"render_frame byte-equal: {NUM_ENVS} states of each mode (0: the "
+        f"slice's, 1: after 20 steps) ({live} live slots) under the whole-world camera and "
+        f"the game's centred one (window NC and view cells by (mode, centred): "
+        f"{windows}), {NUM_ENVS} envs of edge-case slots in the centred window (cap "
+        f"{cplan.game.ENT_CAP}); max_abs_err {err}")
+
+    # the kernel's time against the plain version's, on the slice's states
+    # under both cameras
+    x, xc = xs[False], xs[True]
+    kernel_ms, plain_ms, readings = time_frame(x, rk)
+    b_ms, b_by, b_work = frame_bound(x, rk, torch)
+    kc_ms, pc_ms, creadings = time_frame(xc, rk)
+    bc_ms, bc_by, bc_work = frame_bound(xc, rk, torch)
+    log("climber", f"render_frame at N={NUM_ENVS} ({live[0]} live slots): whole-world "
+        f"camera (NC 64) kernel {kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, "
+        f"plain, kernel, plain: {readings}), bound {b_ms:.4f} ms ({b_by}; {b_work}); "
+        f"centred (NC 19) kernel {kc_ms:.4f} ms, plain {pc_ms:.4f} ms ({creadings}), bound "
+        f"{bc_ms:.4f} ms ({bc_by}; {bc_work}) on {card}; <BG_CROP> instance, whole world: "
+        f"{occupancy(rk.frame_occupancy(x))}; centred: {occupancy(rk.frame_occupancy(xc))}")
+    del x, xc, xs
+
+    gym_centred("climber", card, np, torch)
+    keys = gpu_matches_cpu("climber", np, torch, states=True)
+    checked = replay_on_card("climber_easy")
+    log("climber", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, rewards, "
+        f"firsts, {', '.join(keys)}); climber_easy replay exact ({checked} steps)")
+    return (carry, step, wall_ms), frame_row("climber", launches, err, kernel_ms,
+                                             plain_ms, b_ms, b_by)
 
 # memory mode's states for the kernel checks: (game, random steps after
 # the reset); miner's gravity sweep over its 35x35 world is a host loop of
@@ -1720,7 +1934,7 @@ def painter_bound(vals, used, torch, ops=True):
     return (*bound(moved, ops), f"{moved} bytes, {ops} f32 ops")
 
 
-def gym_genassets(name, dev, card, np, torch, baseline=False, timed=GYM_TIMED_STEPS):
+def gym_genassets(name, dev, card, np, torch, baseline=False, timed=GENASSETS_TIMED_STEPS):
     """The gym3 surface with generated assets at full width, act + observe,
     the centred camera: ``timed`` timed steps after 10.  The
     launch counts are zeroed just before each stretch of this env's work

@@ -4,20 +4,22 @@ A second package beside the JAX one: the same batched Procgen environments
 as eager torch tensors on one device, with the JAX package's per-step
 Pallas frame kernel rewritten as CUDA kernels for NVIDIA Hopper:
 csrc/render_suffix.cu (the sprite suffix over a cached per-level frame:
-maze, leaper, bigfish, and plunder with its decor pool) and
-csrc/render_frame.cu (the whole frame of a game that is not static:
-miner, coinrun, fruitbot, starpilot).  It imports torch and numpy, never
-jax or procgen_tpu.  The entry points run on the card (``device="cuda"``)
-unless the caller passes ``device="cpu"``.  So far it covers maze, miner,
-coinrun, fruitbot, starpilot, plunder, leaper and bigfish in easy and
-hard mode (starpilot and leaper in extreme mode too; ROADMAP.md lists
-what comes next).
+maze, leaper, bigfish, and plunder, dodgeball and bossfight with their
+decor pools) and csrc/render_frame.cu (the whole frame of a game that is
+not static: miner, coinrun, fruitbot, starpilot, climber, memory mode).
+It imports torch and numpy, never jax or procgen_tpu.  The entry points
+run on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``.  So far it covers maze, miner, coinrun, fruitbot,
+starpilot, plunder, leaper, bigfish, dodgeball, bossfight and climber in
+easy and hard mode (starpilot, leaper and dodgeball in extreme mode too,
+maze, miner and dodgeball in memory mode; ROADMAP.md lists what comes
+next).
 """
 
 __version__ = "0.1.0"
 
 ENV_NAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
-             "bigfish"]
+             "bigfish", "dodgeball", "bossfight", "climber"]
 
 # Python-only "exploration" distribution mode fixes one hard level
 # (reference: procgen/env.py:52-61).

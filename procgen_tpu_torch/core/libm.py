@@ -23,7 +23,8 @@ and those are glibc 2.36's (x86_64):
 * ``atan2f``: fdlibm's ``e_atan2f.c`` and ``s_atanf.c`` (glibc's
   ``sysdeps/ieee754/flt-32``), in f32, unfused.
 * ``sincos_times``: a double ``sin``/``cos`` times an f32 speed, rounded
-  once to f32 (starpilot's spawners), on fdlibm's f64 kernels.
+  once to f32 (starpilot's spawners, bossfight's bullets), on fdlibm's
+  f64 reduction and kernels.
 
 Every operation takes a tensor operand or a Python float that is exact in
 the operation's dtype; no torch op that fuses a multiply and an add
@@ -239,23 +240,26 @@ _KC = (4.16666666666666019037e-02, -1.38888888888741095749e-03,
        2.08757232129817482790e-09, -1.13596475577881948265e-11)
 
 
-def _kernel_sin(x: torch.Tensor) -> torch.Tensor:
-    """fdlibm's ``__kernel_sin(x, 0, 0)``: f64, |x| <= pi/4."""
+def _kernel_sin(x: torch.Tensor, y=None) -> torch.Tensor:
+    """fdlibm's ``__kernel_sin(x, y, iy)``: f64, |x| <= pi/4, ``y`` the
+    tail of a reduced argument (iy = 1) or None (iy = 0)."""
     s1, s2, s3, s4, s5, s6 = _KS
     z = x * x
     v = z * x
     r = s2 + z * (s3 + z * (s4 + z * (s5 + z * s6)))
-    return x + v * (s1 + z * r)
+    if y is None:
+        return x + v * (s1 + z * r)
+    return x - ((z * (0.5 * y - v * r) - y) - v * s1)
 
 
-def _kernel_cos(x: torch.Tensor) -> torch.Tensor:
-    """fdlibm's ``__kernel_cos(x, 0)``: f64, |x| <= pi/4.  Above 0.3 it
-    subtracts ``qx``, |x|/4 cut to its high word (0.28125 above 0.78125),
-    first."""
+def _kernel_cos(x: torch.Tensor, y=None) -> torch.Tensor:
+    """fdlibm's ``__kernel_cos(x, y)``: f64, |x| <= pi/4, ``y`` the tail
+    (None: 0).  Above 0.3 it subtracts ``qx``, |x|/4 cut to its high word
+    (0.28125 above 0.78125), first."""
     c1, c2, c3, c4, c5, c6 = _KC
     z = x * x
     r = z * (c1 + z * (c2 + z * (c3 + z * (c4 + z * (c5 + z * c6)))))
-    zr = z * r
+    zr = z * r if y is None else z * r - x * y
     small = 1.0 - (0.5 * z - zr)
     bits = torch.abs(x).view(i64)
     hi = bits >> 32
@@ -265,19 +269,51 @@ def _kernel_cos(x: torch.Tensor) -> torch.Tensor:
     return torch.where(hi < 0x3FD33333, small, large)
 
 
+# e_rem_pio2.c: 2/pi, and pi/2 as its first 33 bits and the rest
+_INV_PIO2 = 6.36619772367581382433e-01
+_PIO2_1 = 1.57079632673412561417e+00
+_PIO2_1T = 6.07710050650619224932e-11
+
+
+def _sincos_f64(x: torch.Tensor):
+    """fdlibm's double ``sin(x)`` and ``cos(x)`` (s_sin.c, s_cos.c) of an
+    f64 tensor with |x| < 2^19 pi/2: up to |x| <= pi/4 the kernels alone,
+    past it ``__ieee754_rem_pio2``'s first round (n = |x| 2/pi rounded,
+    |x| - n pi/2 as a head and a tail; good to 85 bits, which an f32
+    argument never needs the second round past) and the kernel of n's
+    quadrant."""
+    t = torch.abs(x)
+    small = (t.view(i64) >> 32) <= 0x3FE921FB
+    n = torch.trunc(t * _INV_PIO2 + 0.5)
+    r = t - n * _PIO2_1
+    w = n * _PIO2_1T
+    y0 = r - w
+    y1 = (r - y0) - w
+    neg = x < 0
+    y0 = torch.where(neg, -y0, y0)
+    y1 = torch.where(neg, -y1, y1)
+    q = torch.where(neg, -n, n).to(i64) & 3
+    ks, kc = _kernel_sin(y0, y1), _kernel_cos(y0, y1)
+    sin = torch.where(q == 0, ks, torch.where(q == 1, kc, torch.where(q == 2, -ks, -kc)))
+    cos = torch.where(q == 0, kc, torch.where(q == 1, -ks, torch.where(q == 2, -kc, ks)))
+    return (torch.where(small, _kernel_sin(x), sin),
+            torch.where(small, _kernel_cos(x), cos))
+
+
 def sincos_times(theta: torch.Tensor, v: torch.Tensor):
     """``(float)(sin(theta) * v)`` and ``(float)(cos(theta) * v)`` for f32
-    ``theta`` in [-pi/4, pi/4] and f32 ``v``, where ``sin``/``cos`` are C's
-    double functions: a C++ float expression that calls them is evaluated
-    in double and rounded once to float.  The double sine and cosine are
-    fdlibm's kernels in explicit f64 operations, so the CPU and the card
+    ``theta`` (|theta| < 2^19 pi/2) and f32 ``v``, where ``sin``/``cos``
+    are C's double functions: a C++ float expression that calls them is
+    evaluated in double and rounded once to float.  The double sine and
+    cosine are fdlibm's in explicit f64 operations, so the CPU and the card
     agree; glibc's are needed only as far as they reach the f32 result,
-    and the kernels are held to them there at every heading of
-    starpilot's spawners and each of its speeds
-    (``tools/torch_libm_sweep.py --spawners``)."""
-    t = theta.to(f64)
+    and fdlibm's are held to them there at every heading of starpilot's
+    spawners and each of its speeds (``tools/torch_libm_sweep.py
+    --spawners``) and at bossfight's bullet headings
+    (``tests/test_torch_bossfight.py``)."""
+    sin, cos = _sincos_f64(theta.to(f64))
     v = v.to(f64)
-    return (_kernel_sin(t) * v).to(f32), (_kernel_cos(t) * v).to(f32)
+    return (sin * v).to(f32), (cos * v).to(f32)
 
 
 def _full(like, v):

@@ -280,6 +280,15 @@ def commit(norm_state: MTState, draws: Draws) -> MTState:
     return norm_state.replace(mt=mt, pos=pos)
 
 
+def window(draws: Draws, norm_state: MTState, need: int):
+    """``(draws, norm_state)``, or a fresh peeked window of ``N`` words
+    where some env has fewer than ``need`` words left in its window (one
+    host read)."""
+    if int(draws.cursor.max()) > N - need:
+        draws, norm_state = peek_block(commit(norm_state, draws), N)
+    return draws, norm_state
+
+
 def draw_block(state: MTState, n_max: int):
     """The next ``n_max`` tempered words per env (``[N_env, n_max]``)
     WITHOUT advancing; pass ``ctx`` to ``advance_block`` with the count

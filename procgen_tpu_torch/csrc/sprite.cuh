@@ -5,8 +5,10 @@
 //
 // A pixel's canvases live in registers, one premultiplied RGBA canvas per z
 // level of each sprite pool.  Every slot blends into the canvas of its z
-// level with a = ((texel * f32(1/255)) * alpha) * cover and the canvas is
-// rounded to bf16 after every slot, in the Pallas kernel's operation order.
+// level with a = (texel * (alpha * f32(1/255))) * cover and the canvas is
+// rounded to bf16 after every slot, in the Pallas kernel's operation order
+// as XLA runs it on the CPU (it multiplies the slot's two scalar factors
+// first).
 // A slot that misses the pixel blends with a = 0 and a dead or foreign-z
 // slot with a = 0 too: for finite slot values (alpha in [0, 1], colours
 // 0-255, as prep writes them) that blend leaves a bf16-rounded canvas
@@ -87,7 +89,8 @@ struct __align__(16) SlotPaint {
   int zc;      // its canvas's place in the composite order
   int fb;      // fallback colour instead of the texture
   int span;    // its pixel spans: x lo, x hi, y lo, y hi, a byte each
-  float alpha, rgb[3];
+  float alpha;  // its alpha times f32(1/255)
+  float rgb[3];
 };
 
 // The canvases in composite order: pos[c] is canvas c's place (-1: never
@@ -257,7 +260,7 @@ __device__ __forceinline__ void compact_slots(SlotTables& t, int cap,
       s.zc = zc;
       s.fb = e[EI_FB] > 0;
       s.span = span;
-      s.alpha = f[EF_ALPHA];
+      s.alpha = f[EF_ALPHA] * INV255;  // alpha * f32(1/255), per slot
 #pragma unroll
       for (int c = 0; c < 3; ++c) s.rgb[c] = f[EF_R + c];
       t.paint[j] = s;
@@ -345,8 +348,8 @@ __device__ __forceinline__ bool paint_pixel(const SlotTables& t, int row,
       } else {
         const int p = t.py[j * RES + row];
         const uchar4 tx = __ldg(atlas + s.texel0 + p * S + q);
-        // ((texel * f32(1/255)) * alpha) * cover, cover = 1
-        a = ((float)tx.w * INV255) * s.alpha;
+        // (texel * (alpha * f32(1/255))) * cover, cover = 1
+        a = (float)tx.w * s.alpha;
         rgb[0] = (float)tx.x;
         rgb[1] = (float)tx.y;
         rgb[2] = (float)tx.z;

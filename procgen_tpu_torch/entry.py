@@ -1,5 +1,5 @@
-"""The flagship program: one game (maze by default, miner, coinrun,
-fruitbot, starpilot, plunder, leaper or bigfish), easy mode, N envs, frames left on the
+"""The flagship program: one game (maze by default, or another of
+``ENV_NAMES``), easy mode, N envs, frames left on the
 device.  ``make_env_fns`` is the counterpart of ``__graft_entry__._make_env_fns`` of the JAX
 package, line for line: game logic, pooled auto-reset with the hybrid
 per-step replenish, and the 64x64 frame render.

@@ -318,7 +318,7 @@ class Dodgeball(BasicAbstractGame):
         boxes = ((0.0, 0.0, W, 2 * er), (0.0, W - 2 * er, W, 2 * er),
                  (0.0, 0.0, 2 * er, W), (W - 2 * er, 0.0, 2 * er, W))
         for ci, (bx, by, bw, bh) in enumerate(boxes):
-            d, norm = _window(d, norm, 2 * (MAX_TRIES + 1))
+            d, norm = rng.window(d, norm, 2 * (MAX_TRIES + 1))
             do = wall_choice == ci
             d, px, py = place_by_rejection(d, _blockers(s.ents), er, er, bx, by, bw, bh,
                                            do, MAX_TRIES)
@@ -326,7 +326,7 @@ class Dodgeball(BasicAbstractGame):
                 default_fields(px, py, 0.0, 0.0, er, er, DOOR), do=do))
 
         # reposition_agent (cpp:341)
-        d, norm = _window(d, norm, 2 * (MAX_TRIES + 1))
+        d, norm = rng.window(d, norm, 2 * (MAX_TRIES + 1))
         d, ax, ay = reposition_agent(d, s.ents, W, W, MAX_TRIES)
         s = s.replace(ents=s.ents.set_fields(0, x=ax, y=ay))
 
@@ -334,7 +334,7 @@ class Dodgeball(BasicAbstractGame):
         d, extra = d.randn(self.max_extra + 1)
         num_enemies = extra + 3
         for i in range(self.max_extra + 3):
-            d, norm = _window(d, norm, 2 * (MAX_TRIES + 1))
+            d, norm = rng.window(d, norm, 2 * (MAX_TRIES + 1))
             do = i < num_enemies
             d, px, py = place_by_rejection(d, _blockers(s.ents), self.enemy_r, self.enemy_r,
                                            0.0, 0.0, W, W, do, MAX_TRIES)
@@ -343,7 +343,7 @@ class Dodgeball(BasicAbstractGame):
 
         # the theme and every enemy's setup, in slot order (cpp:347-363):
         # three draws an enemy, at offsets of a prefix sum over the slots
-        d, norm = _window(d, norm, 1 + 3 * (self.max_extra + 3))
+        d, norm = rng.window(d, norm, 1 + 3 * (self.max_extra + 3))
         d, enemy_theme = d.randn(NUM_ENEMY_THEMES)
         e = s.ents
         is_en = e.active & (e.type == ENEMY)
@@ -552,10 +552,3 @@ def _blockers(e):
     slot0 = torch.arange(e.cap, device=e.x.device)[None, :] == 0
     return [(e.x, e.y, e.rx, e.ry, e.active & (slot0 | ~e.avoids_collisions))]
 
-
-def _window(d, norm, need: int):
-    """``d``, or a fresh peeked window where fewer than ``need`` words are
-    left in it (one host read)."""
-    if int(d.cursor.max()) > rng.N - need:
-        d, norm = rng.peek_block(rng.commit(norm, d), rng.N)
-    return d, norm

@@ -242,8 +242,7 @@ class Plunder(BasicAbstractGame):
         if self.options.distribution_mode != EASY_MODE:
             d, num_panels = d.randn(4)
             for i in range(3):
-                if int(d.cursor.max()) > rng.N - 2 * (MAX_TRIES + 1):
-                    d, norm = rng.peek_block(rng.commit(norm, d), rng.N)
+                d, norm = rng.window(d, norm, 2 * (MAX_TRIES + 1))
                 e = s.ents
                 slot0 = torch.arange(e.cap, device=dev)[None, :] == 0
                 blockers = [(e.x, e.y, e.rx, e.ry,
@@ -274,8 +273,7 @@ class Plunder(BasicAbstractGame):
         s = s.replace(ents=s.ents.set_fields(
             0, image_type=SHIP, rx=r_scale, rotation=-PI / 2,
             image_theme=agent_theme, ry=rdiv(r_scale, ar)))
-        if int(d.cursor.max()) > rng.N - 2 * (MAX_TRIES + 1):
-            d, norm = rng.peek_block(rng.commit(norm, d), rng.N)
+        d, norm = rng.window(d, norm, 2 * (MAX_TRIES + 1))
         d, ax, _ = reposition_agent(d, s.ents, 20.0, 20.0, MAX_TRIES)
         e = s.ents
         min_agent_x = 2 * legend_r + e.rx[:, 0]

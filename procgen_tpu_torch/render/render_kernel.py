@@ -2,7 +2,8 @@
 
 The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
 
-* the static-prefix path, which maze, leaper, bigfish and plunder take:
+* the static-prefix path, which maze, leaper, bigfish, plunder, dodgeball
+  and bossfight take:
   the background, grid tiles and colored cells are composed once per level into
   ``state.frame`` (lifecycle.env_reset), and each step composites only the
   sprites over that frame.  ``render_suffix`` launches
@@ -12,8 +13,9 @@ The counterpart of ``procgen_tpu.render.pallas_kernel``, on two paths:
   z=1, at each z the entity pool's canvas and then the decor pool's,
   round, u8).
 * the whole-frame path of a game that is not static, which miner, coinrun,
-  fruitbot and starpilot take, under the static camera or the
-  agent-centred one.  ``render_frame`` launches ``csrc/render_frame.cu``;
+  fruitbot, starpilot and climber take, under the static camera or the
+  agent-centred one (the game's ``camera`` hook: climber's shows the
+  world's width).  ``render_frame`` launches ``csrc/render_frame.cu``;
   it adds the Pallas kernel's K1d (the background: the standard crop,
   fruitbot's vertical tiling or starpilot's time-scrolled tiles of a fixed
   image, or under generated assets the env's own painted canvas, cropped
@@ -532,7 +534,7 @@ def _slot_canvases(ent_f, ent_i, atlas, nz: int, res: int = RES, count=None):
 
         fb = (ii[:, EI_FB] > 0)[:, None, None]
         alpha_e = fi[:, EF_ALPHA][:, None, None]
-        a = torch.where(fb, cover, tex[..., 3] * (1.0 / 255.0) * alpha_e * cover)
+        a = torch.where(fb, cover, tex[..., 3] * (alpha_e * (1.0 / 255.0)) * cover)
         on = (ii[:, EI_LIVE] > 0) & (ii[:, EI_Z] >= 0)
         if count is not None:
             on = on & (i < count)

@@ -416,7 +416,7 @@ def _sprite_canvases(game, s, pool, mask, atlas, res, unit, vis, x_off,
         fbk = is_fallback[:, i][:, None, None]
         a = torch.where(
             fbk, cover,
-            samp[..., 3] * (1.0 / 255.0) * e.alpha[:, i][:, None, None] * cover,
+            samp[..., 3] * (e.alpha[:, i][:, None, None] * (1.0 / 255.0)) * cover,
         )
         rgb = torch.where(fbk[..., None], fallback_rgb[:, i][:, None, None, :],
                           samp[..., :3])

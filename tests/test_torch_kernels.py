@@ -18,6 +18,8 @@ import torch
 from procgen_tpu_torch.core.options import GameOptions
 from procgen_tpu_torch.core import lifecycle
 from procgen_tpu_torch.core.constants import INT32_MAX
+from procgen_tpu_torch.games.bossfight import BARRIER, Bossfight
+from procgen_tpu_torch.games.climber import Climber
 from procgen_tpu_torch.games.coinrun import Coinrun
 from procgen_tpu_torch.games.dodgeball import LAVA_WALL, Dodgeball
 from procgen_tpu_torch.games.fruitbot import Fruitbot
@@ -810,14 +812,17 @@ def test_kernel_shared_memory_fits_the_games():
     (coinrun's whole world: a 64x64 row table, 48 + 96 slots) above the
     default 48 KB; tiles past 254 px (the uint8 axis tables) are refused.
     Memory mode's centred windows (maze and miner 11 cells, dodgeball 19
-    with 72 + 16 slots) and dodgeball's static path (72 + 16) fit too."""
+    with 72 + 16 slots), dodgeball's static path (72 + 16), climber's two
+    windows (64 and 19 cells, 24 slots) and bossfight's static path, the
+    largest suffix block (72 + 160: 69,104 B, past 48 KB), fit too."""
     assert rk.frame_smem(64, 48, 96) > 48 * 1024
     for NC, cap, dcap in ((64, 48, 96), (60, 112, 0), (16, 64, 32), (16, 2, 0),
-                          (11, 2, 0), (19, 72, 16)):
+                          (11, 2, 0), (19, 72, 16), (64, 24, 0), (19, 24, 0)):
         assert rk.frame_smem(NC, cap, dcap) <= rk.SMEM_MAX
     for cap, dcap in ((2, 0), (48, 24), (72, 16), (72, 160)):
         assert rk.suffix_smem(cap, dcap) <= rk.SMEM_MAX
     assert rk.suffix_smem(72, 16) > rk.suffix_smem(48, 24)
+    assert rk.suffix_smem(72, 160) == 69104 > 48 * 1024
     base, ent_f, ent_i, _, decor = _synthetic_suffix(2, 3, 2)
     big = torch.zeros((2, 255, 255, 4), dtype=torch.uint8)
     with pytest.raises(ValueError, match="out of range"):
@@ -837,10 +842,22 @@ def _dodgeball_edge_inputs(n, seed, dev):
     return base.to(dev), ent_f.to(dev), ent_i.to(dev), plan.atlas(dev), decor.to(dev)
 
 
+def _bossfight_edge_inputs(n, seed, dev):
+    """Made-up static-path inputs at bossfight's full caps (72 + 160): the
+    edge cases, with tiled slots and rotation-bank rows among the entity
+    slots."""
+    plan = rk.get_plan(Bossfight(GameOptions(distribution_mode=0)))
+    meteor = int(plan.ent_atlas.row_for(torch.tensor([BARRIER]), torch.tensor([0]))[0])
+    base, ent_f, ent_i, decor = rk.synthetic_wall_inputs(n, plan, meteor, seed=seed)
+    return base.to(dev), ent_f.to(dev), ent_i.to(dev), plan.atlas(dev), decor.to(dev)
+
+
 def _edge_inputs(case, n, dev):
     """Made-up inputs with the edge cases at a game's full caps."""
     if case == "dodgeball":
         return _dodgeball_edge_inputs(n, 24, dev)
+    if case == "bossfight":
+        return _bossfight_edge_inputs(n, 25, dev)
     if case in ("maze", "plunder"):
         atlas = rk.get_plan(_plunder()).atlas(dev)
         if case == "maze":  # the entity-only instance, fruitbot's cap
@@ -856,6 +873,8 @@ def _edge_inputs(case, n, dev):
         "coinrun": (_coinrun(centred=False), 48, 96, rk.BG_CROP),
         "fruitbot": (_fruitbot(), 112, 0, rk.BG_TILED),
         "starpilot": (_starpilot(), 64, 32, rk.BG_SCROLL),
+        "climber": (Climber(GameOptions(distribution_mode=1, center_agent=True)), 24, 0,
+                    rk.BG_CROP),
     }[case]
     plan = rk.get_plan(game)
     return rk.synthetic_frame_inputs(
@@ -864,15 +883,15 @@ def _edge_inputs(case, n, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["maze", "plunder", "dodgeball", "miner", "coinrun",
-                                  "fruitbot", "starpilot"])
+@pytest.mark.parametrize("case", ["maze", "plunder", "dodgeball", "bossfight", "miner",
+                                  "coinrun", "fruitbot", "starpilot", "climber"])
 def test_cuda_kernels_match_plain_version_on_edge_slots(case):
     """Both kernels on the edge cases at full caps (masks of several words),
     byte-equal to their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     x = _edge_inputs(case, 256, torch.device("cuda"))
-    if case in ("maze", "plunder", "dodgeball"):
+    if case in ("maze", "plunder", "dodgeball", "bossfight"):
         base, ent_f, ent_i, atlas, decor = x
         got = rk.render_suffix(base, ent_f, ent_i, atlas, 2, decor)
         want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor)
@@ -881,3 +900,32 @@ def test_cuda_kernels_match_plain_version_on_edge_slots(case):
         want = rk.render_frame_reference(x)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_suffix_kernel_at_bossfights_caps():
+    """The decor instance at the largest pools (72 + 160, 69,104 B of
+    dynamic shared memory a block) on bossfight easy and hard states with
+    volleys and laser trails, byte-equal to its plain version; the
+    instance reports that shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    assert rk.suffix_occupancy(72, 160)["smem_bytes"] == 69104
+    seeds = torch.arange(64, dtype=torch.int64, device=dev) * 7919 + 11
+    for mode in (0, 1):
+        game = Bossfight(GameOptions(distribution_mode=mode))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        acts = np.random.RandomState(mode).choice([9, 10, 1, 7, 4], (40, 64))
+        for a in acts:
+            s, _ = lifecycle.env_step(game, s, torch.as_tensor(a, device=dev))
+        assert int(s.decor.count.max()) >= 8
+        plan = rk.get_plan(game)
+        ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+        assert ent_f.shape[1] == 72 and decor.dec_f.shape[1] == 160
+        base, atlas = s.frame.contiguous(), plan.atlas(dev)
+        got = rk.render_suffix(base, ent_f, ent_i, atlas, 2, decor)
+        want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -31,7 +31,13 @@ lane speeds (``Plunder.game_reset``) are evaluated in f64 under
 ``jax.enable_x64`` and rounded once to f32, each expression replaced by
 its text; dodgeball's ball spin (``BALL_V_ROT``) and its dust cloud's
 spin and growth take the C++ float constants (``CPP_F32``, products and
-quotients of f32 operands); nothing else of the package changes.  XLA's f64 ``pow``,
+quotients of f32 operands); bossfight's bullets take ``bv * cos(theta)``
+and ``bv * sin(theta)`` in f64, mode 1's heading and the shield's
+reflection angle in f64, modes 0 and 2 their headings' C++ constants and
+the shield its height ``1.2 * boss ry`` in f64, and the boss's course and
+the barriers' rows pass ``jax.lax.optimization_barrier`` where XLA would
+fold a chain of constants or turn a division by 20 into a multiply;
+nothing else of the package changes.  XLA's f64 ``pow``,
 ``sin`` and ``cos`` on the CPU are glibc's (``test_patched_f64_is_glibc``).
 
 Tolerance: zero.
@@ -56,7 +62,7 @@ from procgen_tpu_torch import ProcgenGym3Env  # noqa: E402
 from procgen_tpu_torch.bridge import state_from_numpy  # noqa: E402
 
 GAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder",
-         "leaper", "bigfish", "dodgeball"]
+         "leaper", "bigfish", "dodgeball", "bossfight", "climber"]
 # the fields the C++ bytes do not carry
 NOT_IN_BYTES = {"frame", "bg_canvas", "total_reward", "step_draws",
                 "reset_count"}
@@ -82,6 +88,11 @@ CPP_F64 = {
     "cos": _in_f64(lambda t, v: jnp.cos(t) * v),
     "sin": _in_f64(lambda t, v: jnp.sin(t) * v),
     "lane_vel": _in_f64(lambda v: 0.15 + 0.1 * v),  # plunder's lanes
+    # bossfight: mode 1's turning cross, the shield's reflection, the
+    # shield's height
+    "bf_turn": _in_f64(lambda k, c: PI_F * (1.25 + 0.5 * k / 8.0) + c),
+    "bf_reflect": _in_f64(lambda r: PI_F * (1.25 + 0.5 * r)),
+    "shield_ry": _in_f64(lambda r: 1.2 * r),
 }
 
 # (module, class, method): [(the JAX package's text, its replacement)]
@@ -105,16 +116,56 @@ _PATCHES = {
         ('f["vrot"] = PI / 0.3', 'f["vrot"] = CPP_F32["dust_vrot"]'),
         ('f["grow_rate"] = 1.0 / 1.2', 'f["grow_rate"] = CPP_F32["dust_grow"]'),
     ],
+    ("procgen_tpu.games.bossfight", "Bossfight", "game_step"): [
+        ("bx0, by0, bv * jnp.cos(theta), bv * jnp.sin(theta), do_r, do_r,",
+         "bx0, by0, CPP_F64['cos'](theta, bv), CPP_F64['sin'](theta, bv), do_r, do_r,"),
+        ("recs.append(bullet_rec(PI * 1.5 + (i - 2) * PI / 8))",
+         "recs.append(bullet_rec(CPP_F32['bf_fan'][i]))"),
+        ("recs.append(bullet_rec(PI * (1.25 + 0.5 * k.astype(f32) / 8.0) + i * PI / 2))",
+         "recs.append(bullet_rec(CPP_F64['bf_turn'](k, CPP_F32['bf_turn'][i])))"),
+        ("recs.append(bullet_rec(2 * PI / 8 * i + g.rand_pct * 2 * PI))",
+         "recs.append(bullet_rec(CPP_F32['bf_ring'][i] + g.rand_pct * 2 * PI))"),
+        # the boss's course: XLA folds ``+ BOSS_R + BOTTOM_MARGIN`` into one
+        # constant and divides by 20 as a multiply by f32(1 / 20)
+        ("dest_y = rpy * (20.0 - 2 * BOSS_R - BOTTOM_MARGIN) + BOSS_R + BOTTOM_MARGIN",
+         "dest_y = _OB(rpy * (20.0 - 2 * BOSS_R - BOTTOM_MARGIN) + BOSS_R) + BOTTOM_MARGIN"),
+        ("nvx = (dest_x - e.x[BOSS_SLOT]) / BOSS_VEL_TIMEOUT",
+         "nvx = (dest_x - e.x[BOSS_SLOT]) / _OB(f32(BOSS_VEL_TIMEOUT))"),
+        ("nvy = (dest_y - e.y[BOSS_SLOT]) / BOSS_VEL_TIMEOUT",
+         "nvy = (dest_y - e.y[BOSS_SLOT]) / _OB(f32(BOSS_VEL_TIMEOUT))"),
+    ],
+    ("procgen_tpu.games.bossfight", "Bossfight", "dispatch_entity_pairs"): [
+        ("theta = PI * (1.25 + 0.5 * g.rand_pct)", "theta = CPP_F64['bf_reflect'](g.rand_pct)"),
+        ("PLAYER_BULLET_VEL * jnp.sin(theta) * 0.5", "CPP_F64['sin'](theta, 0.5)"),
+        ("PLAYER_BULLET_VEL * jnp.cos(theta) * 0.5", "CPP_F64['cos'](theta, 0.5)"),
+    ],
+    ("procgen_tpu.games.bossfight", "Bossfight", "game_reset"): [
+        ("1.2 * BOSS_R, 1.2 * BOSS_R / boss_ar, SHIELDS",
+         "1.2 * BOSS_R, CPP_F64['shield_ry'](BOSS_R / boss_ar), SHIELDS"),
+        # the barriers' rows, which XLA would fold into other constants
+        ("min_y = 2 * e.ry[0] + barrier_r + 0.5",
+         "min_y = _OB(2 * e.ry[0] + barrier_r) + 0.5"),
+        ("ent_y = y01 * (BOTTOM_MARGIN - min_y - barrier_r) + min_y",
+         "ent_y = y01 * (_OB(BOTTOM_MARGIN - min_y) - barrier_r) + min_y"),
+    ],
 }
 
 # C++ float constants of f32 operands, each rounded once from f32: the
 # JAX package takes them from Python doubles.  Dodgeball's ball spin
 # ``PI * .23`` is an ulp off that way; the dust cloud's spin and growth
 # give the same bits either way.
+_F = np.float32
 CPP_F32 = {
-    "ball_vrot": float(np.float32(PI_F) * np.float32(0.23)),
-    "dust_vrot": float(np.float32(PI_F) / np.float32(0.3)),
-    "dust_grow": float(np.float32(1.0) / np.float32(1.2)),
+    "ball_vrot": float(_F(PI_F) * _F(0.23)),
+    "dust_vrot": float(_F(PI_F) / _F(0.3)),
+    "dust_grow": float(_F(1.0) / _F(1.2)),
+    # bossfight's headings: mode 0's PI * 1.5 + (i - 2) * PI / 8 (a double
+    # sum of a float term), mode 1's i * PI / 2 and mode 2's 2 * PI / 8 * i
+    # (floats)
+    "bf_fan": [float(_F(PI_F * 1.5 + float(_F(_F(i - 2) * _F(PI_F)) / _F(8))))
+               for i in range(5)],
+    "bf_turn": [float(_F(_F(i) * _F(PI_F)) / _F(2)) for i in range(4)],
+    "bf_ring": [float(_F(_F(_F(2) * _F(PI_F)) / _F(8)) * _F(i)) for i in range(8)],
 }
 
 
@@ -133,7 +184,8 @@ def _patched_methods():
         for old, new in edits:
             assert src.count(old) == 1, (cls_name, meth, old)
             src = src.replace(old, new)
-        ns = dict(vars(mod), CPP_F64=CPP_F64, CPP_F32=CPP_F32)
+        ns = dict(vars(mod), CPP_F64=CPP_F64, CPP_F32=CPP_F32,
+                  _OB=jax.lax.optimization_barrier)
         exec(compile(src, inspect.getsourcefile(cls), "exec"), ns)
         out[cls, meth] = ns[meth]
     return out

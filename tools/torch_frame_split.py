@@ -1,14 +1,15 @@
 """Where a frame kernel's time goes: time the port's frame kernels with one
 part cut out at a time, on the main paths' states, on one CUDA card.
 
-    python3 tools/torch_frame_split.py [--old DIR]
+    python3 tools/torch_frame_split.py [--old DIR] [--only GAME,GAME,...]
 
 Builds copies of ``procgen_tpu_torch/csrc/`` into ``build/frame_split/``,
 each with one part removed by a text edit (the kernels themselves carry no
 switch), loads each copy as the port's kernel library and times
 ``render_suffix`` and ``render_frame`` on 4096 envs after 50 random steps:
-maze and plunder (the suffix), miner, coinrun under both cameras, fruitbot
-easy and hard and starpilot (the whole frame).  Each build runs 200
+maze, plunder, dodgeball and bossfight (the suffix), miner, coinrun and
+climber under both cameras, fruitbot easy and hard and starpilot (the
+whole frame); ``--only`` keeps the games it names.  Each build runs 200
 launches per instance, the builds in turns, forward then backward; the
 whole builds are held byte for byte against the plain versions.  With
 ``--old DIR``, also the kernels in DIR of the earlier design that walked
@@ -149,8 +150,9 @@ def cuda_ms(fn, torch, iters=200):
     return a.elapsed_time(b) / iters
 
 
-def cases(np, torch):
-    """(label, kernel call, plain call) of each instance on its states."""
+def cases(np, torch, only=None):
+    """(label, kernel call, plain call) of each instance on its states;
+    ``only``: the games to keep (None: all)."""
     from procgen_tpu_torch.core import lifecycle
     from procgen_tpu_torch.core.constants import INT32_MAX
     from procgen_tpu_torch.core.options import GameOptions
@@ -173,8 +175,13 @@ def cases(np, torch):
             carry, *_ = step(carry, torch.as_tensor(rng.randint(0, 15, size=N), device=dev))
         return carry.states, seeds
 
+    def wanted(name):
+        return only is None or name in only
+
     out = []
-    for name in ("maze", "plunder"):
+    for name in ("maze", "plunder", "dodgeball", "bossfight"):
+        if not wanted(name):
+            continue
         s, _ = states(name)
         plan = plan_of(name)
         ent_f, ent_i, decor = rk.prep_suffix(plan, s)
@@ -182,12 +189,17 @@ def cases(np, torch):
         out.append((f"{name} render_suffix", lambda a=args: rk.render_suffix(*a),
                     lambda a=args: rk.render_suffix_reference(*a)))
     for name, cams in (("miner", (False,)), ("coinrun", (False, True)),
-                       ("fruitbot", (False,)), ("starpilot", (False,))):
+                       ("fruitbot", (False,)), ("starpilot", (False,)),
+                       ("climber", (False, True))):
+        if not wanted(name):
+            continue
         s, seeds = states(name)
         for centred in cams:
             x = rk.prep_frame(plan_of(name, 0, centred), s)
             out.append((f"{name}{' centred' if centred else ''} render_frame",
                         lambda x=x: rk.render_frame(x), lambda x=x: rk.render_frame_reference(x)))
+    if not wanted("fruitbot"):
+        return out
     hard = plan_of("fruitbot", 1)
     s = lifecycle.env_reset(hard.game, lifecycle.initial_state(hard.game, seeds))
     rng = np.random.RandomState(1)
@@ -222,7 +234,9 @@ def main():
     libs = build(builds)
     log(f"built {len(builds)} kernel libraries on {card}")
     names = list(builds)
-    for label, fn, ref in cases(np, torch):
+    only = (set(sys.argv[sys.argv.index("--only") + 1].split(","))
+            if "--only" in sys.argv else None)
+    for label, fn, ref in cases(np, torch, only):
         want = ref()
         ms = {k: [] for k in names}
         for order in (names, names[::-1]):
