@@ -11,41 +11,43 @@ the process exits non-zero):
               source; seconds, ptxas.
 3. maze     — the static-prefix kernel ``render_suffix`` against its plain
               torch version, byte for byte, on the prep of 4096 maze states
-              after 50 random steps and on a made-up batch; the slice
-              ``entry.make_env_fns(4096, "maze", device="cuda")``: 50
-              warm-up and 150 timed steps (every slice's), one ``render_suffix`` launch a
-              step, env-steps/s, a per-layer split, the kernel's time
+              after 20 random steps and on a made-up batch; the slice
+              ``entry.make_env_fns(4096, "maze", device="cuda")``: 20
+              warm-up and 100 timed steps (maze to dodgeball; bossfight,
+              climber, ninja and chaser run 50 + 150), one
+              ``render_suffix`` launch a step, env-steps/s, a per-layer
+              split, the kernel's time
               against the plain version's and its bound; a 64-env
               ``ProcgenGym3Env`` for 50 steps on the card and on the CPU,
               bit-equal; the maze_easy recording replayed exactly on the
               card.
 4. miner    — the whole-frame kernel ``render_frame`` against its plain
               torch version, byte for byte, on the prep of 4096 miner-easy
-              states after 50 random steps, of 4096 miner-hard states and
+              states after 20 random steps, of 4096 miner-hard states and
               on a made-up batch; the slice ``make_env_fns(4096, "miner",
-              device="cuda")`` for 50 warm-up and 150 timed steps, one
+              device="cuda")`` for 20 warm-up and 100 timed steps, one
               ``render_frame`` launch a step; a 64-env miner ``ProcgenGym3Env`` for 50 steps on the
               card and on the CPU, bit-equal, latents included; the
               miner_easy recording replayed exactly on the card.
 5. coinrun  — ``render_frame`` with the decor pool against its plain
               version, byte for byte, on the prep of 4096 coinrun-easy
-              states after 50 random steps under the whole-world camera
+              states after 20 random steps under the whole-world camera
               and under the agent-centred one, of 4096 coinrun-hard
               states, and on a made-up batch with both pools full; the
               slice ``make_env_fns(4096, "coinrun", device="cuda")``, one
-              ``render_frame`` launch a step; 50 timed steps of a
+              ``render_frame`` launch a step; 30 timed steps of a
               4096-env ``ProcgenGym3Env`` (agent-centred, the default); a
               64-env one for 50 steps on the card and on the CPU,
               bit-equal; the coinrun_easy recording replayed exactly on
               the card.
 6. fruitbot — ``render_frame`` with the tiled background against its plain
               version, byte for byte, on the prep of 4096 fruitbot-easy
-              states after 50 random steps under the whole-world camera
+              states after 20 random steps under the whole-world camera
               and the agent-centred one, of 4096 fruitbot-hard states and
               on a made-up tiled batch; the slice ``make_env_fns(4096,
               "fruitbot", device="cuda")``, one ``render_frame`` launch a
               step; the kernel's time on easy under both cameras and on
-              hard; 50 timed steps of a 4096-env centred
+              hard; 30 timed steps of a 4096-env centred
               ``ProcgenGym3Env``; a 64-env one for 50 steps on the card
               and on the CPU, bit-equal; the fruitbot_easy recording
               replayed exactly on the card.
@@ -60,18 +62,18 @@ the process exits non-zero):
               and ``cos`` times each speed);
               ``render_frame`` with the time-scrolled
               background against its plain version, byte for byte, on the
-              prep of 4096 starpilot-easy states after 50 random steps
+              prep of 4096 starpilot-easy states after 20 random steps
               under both cameras, of 4096 hard and 4096 extreme states and
               on a made-up scrolled batch; the slice ``make_env_fns(4096,
               "starpilot", device="cuda")``, one ``render_frame`` launch a
-              step; the kernel's time under both cameras; 50 timed steps
+              step; the kernel's time under both cameras; 30 timed steps
               of a 4096-env centred ``ProcgenGym3Env``; a 64-env one for 50
               steps on the card and on the CPU, bit-equal, every state leaf
               included; the starpilot_easy recording replayed exactly on
               the card.
 8. plunder  — the static-prefix kernel's decor instance (``render_suffix``
               with the explosion pool) against its plain version, byte for
-              byte, on the prep of 4096 plunder-easy states after 50 steps
+              byte, on the prep of 4096 plunder-easy states after 20 steps
               of the slice's program, of 4096 plunder-hard states after 30,
               both with live explosions, and on a made-up batch with a full
               decor pool; the slice ``make_env_fns(4096, "plunder",
@@ -85,10 +87,10 @@ the process exits non-zero):
               (``render_suffix<false>``, cap 80: the finish line tiled
               across the frame, the frog's tall rectangle in quarter turns)
               against its plain version, byte for byte, on the prep of 4096
-              leaper-easy states after 50 steps of the slice's program, of
+              leaper-easy states after 20 steps of the slice's program, of
               4096 hard and 4096 extreme states after 20, and on 4096 envs
               of edge-case slots at cap 80; the slice ``make_env_fns(4096,
-              "leaper", device="cuda")`` for 50 warm-up and 150 timed steps
+              "leaper", device="cuda")`` for 20 warm-up and 100 timed steps
               (its 64-env resets each pre-roll the lanes for 200-360
               iterations on the host), one ``render_suffix`` launch a step,
               the split with the 64-env reset's torch operations and
@@ -104,12 +106,12 @@ the process exits non-zero):
               caps (72 entity slots, 16 dust clouds; lava walls tiled
               along x and along y, the rotation banks of the balls, the
               agent and the enemies) against its plain version, byte for
-              byte, on the prep of 4096 easy states after 50 steps of the
+              byte, on the prep of 4096 easy states after 20 steps of the
               slice's program, of 4096 hard and 4096 extreme states after
               30, and on 4096 envs of edge-case slots at those caps with
               made-up tiled walls and bank rows; the slice
-              ``make_env_fns(4096, "dodgeball", device="cuda")``, 50
-              warm-up and 150 timed steps (a 64-env reset nearly every
+              ``make_env_fns(4096, "dodgeball", device="cuda")``, 20
+              warm-up and 100 timed steps (a 64-env reset nearly every
               step), one ``render_suffix`` launch a step; the kernel's time, its bound and its instance's
               occupancy; a 64-env ``ProcgenGym3Env`` for 50 steps on the
               card and on the CPU, bit-equal, every state leaf included;
@@ -143,7 +145,34 @@ the process exits non-zero):
               ``ProcgenGym3Env``; a 64-env one for 50 steps on the card and
               on the CPU, bit-equal, every state leaf included; the
               climber_easy recording replayed exactly on the card.
-14. memory  — memory mode's centred whole frame: ``render_frame`` on the
+14. ninja   — the slice ``make_env_fns(4096, "ninja", device="cuda")``,
+              50 warm-up and 150 timed steps, one ``render_frame`` launch
+              a step (the throwing stars' grid dispatch on the path);
+              then ``render_frame`` against its plain version, byte for
+              byte, on the prep of the slice's 4096 easy states and of
+              4096 hard states after 20 steps of jumps and throws, each
+              under the whole-world camera (64 cells) and the centred one
+              (13 and 19 cells), and on 4096 envs of edge-case slots in
+              the centred window; the kernel's time and bound under both
+              cameras and the instances' occupancy; 50 timed steps of a
+              4096-env centred ``ProcgenGym3Env``; a 64-env one for 50
+              steps on the card and on the CPU, bit-equal, every state
+              leaf included; the ninja_easy recording replayed exactly on
+              the card.
+15. chaser  — the slice ``make_env_fns(4096, "chaser", device="cuda")``,
+              50 warm-up and 150 timed steps, one ``render_frame`` launch
+              a step; then ``render_frame`` against its plain version,
+              byte for byte, on the prep of the slice's 4096 easy states
+              and of 4096 hard and extreme states after 20 steps (windows
+              of 11, 13 and 19 cells, the orbs drawn at an inset of 0.3),
+              on 4096 envs in each window whose pixels fall within a few
+              ulps of the orbs' edges, and on 4096 envs of edge-case
+              slots; the kernel's time and bound in each window; a 64-env
+              ``ProcgenGym3Env`` for 50 steps on the card and on the CPU,
+              bit-equal, every state leaf included; the chaser_easy
+              recording replayed exactly on the card.  The game forces
+              the static camera: no centred gym3 run.
+16. memory  — memory mode's centred whole frame: ``render_frame`` on the
               window of ``visibility + 3`` cells (11 for maze and miner, 19
               for dodgeball with both pools) against its plain version,
               byte for byte, on the prep of 4096 memory states of each
@@ -154,7 +183,7 @@ the process exits non-zero):
               included; the maze_memory recording replayed exactly on the
               card, its ``render_frame`` launches counted (memory mode has
               no timed slice).
-15. genassets — generated assets: the background painter
+17. genassets — generated assets: the background painter
               ``assetgen_bg`` against its plain version, byte for byte, on
               the draw blocks of 256 seeded streams and on a made-up block
               that takes the longest path, its time at 64 envs (a
@@ -162,7 +191,7 @@ the process exits non-zero):
               serial latency, and at 4096 envs the 32 envs within 4 of
               its chunk edges against the plain version; ``render_frame``
               on each env's painted canvas against its plain version, byte
-              for byte, on 4096 states after 50 steps of coinrun easy
+              for byte, on 4096 states after 20 steps of coinrun easy
               (whole-world and centred cameras), fruitbot easy (tiled),
               miner easy and starpilot easy (cropped), and its time on
               painted coinrun and fruitbot against the atlas background's
@@ -177,14 +206,17 @@ the process exits non-zero):
               on the card and on the CPU for 50 steps, bit-equal, every
               state leaf included; the maze_genassets recording replayed
               exactly on the card.
-16. profile — 5 more steps of each slice under ``torch.profiler``:
+18. profile — 5 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-17. result  — a JSON line of the kernels (``render_suffix``,
-              ``render_frame`` and ``assetgen_bg`` once for each path that
-              launches them), the card line, and the last line ``{"ok":
-              true, "device": {...}}``.
+19. result  — each phase's wall seconds, a JSON line of the kernels
+              (``render_suffix``, ``render_frame`` and ``assetgen_bg``
+              once for each path that launches them), the card line, and
+              the last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --only ninja,chaser`` runs the named phases of
+``PHASES`` alone, with the build and the profile of their slices.
 
 Each path's launch counts are set to 0 just before its slice and read just
 after it; launches made to compare or time a kernel do not count.  The
@@ -205,14 +237,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 NUM_ENVS = 4096
-# every slice runs 50 warm-up and 150 timed steps, and the centred gym3
-# envs 50 timed steps after 10: with eight slices at the bench protocol's
-# 100 + 300 and the gym3 envs at 100, the whole script took 1,100.6 s on a
-# host where maze takes 39.6 ms a step and 1,280 s, past its 1,200 s
-# limit, on one where it takes 52.6 ms
+# bossfight, climber, ninja and chaser run 50 warm-up and 150 timed steps,
+# and their centred gym3 envs 50 timed steps after 10: with eight slices at the
+# bench protocol's 100 + 300 and the gym3 envs at 100, the whole script
+# took 1,100.6 s on a host where maze takes 39.6 ms a step and 1,280 s,
+# past its 1,200 s limit, on one where it takes 52.6 ms
 WARM_STEPS = 50
 TIMED_STEPS = 150
 GYM_TIMED_STEPS = 50
+# the slices of maze to dodgeball run shallower, so that every game's
+# phase fits inside the same limit
+EARLY_WARM = 20
+EARLY_TIMED = 100
+# random steps before their kernel checks (the slices of maze to
+# dodgeball, and generated assets)
+PRE_STEPS = 20
+# the centred gym3 envs of coinrun, fruitbot and starpilot
+EARLY_GYM_TIMED = 30
 # the generated-assets gym3 env is timed over 100 steps, in alternating
 # windows with the env without generated assets
 GENASSETS_TIMED_STEPS = 100
@@ -442,7 +483,7 @@ def zero_counts(*mods):
             mod.LAUNCHES[k] = 0
 
 
-def main():
+def main(argv=()):
     import numpy as np
     import torch
 
@@ -452,6 +493,16 @@ def main():
         return 2
     from procgen_tpu_torch import kernels
 
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only":
+            print("usage: chip_smoke.py [--only PHASE,...]", file=sys.stderr)
+            return 2
+        only = set(argv[1].split(","))
+        unknown = only - set(PHASES)
+        if unknown:
+            print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+            return 2
     nvcc_ver = subprocess.run(
         [kernels.nvcc_path(), "--version"], capture_output=True, text=True,
         check=True,
@@ -462,15 +513,24 @@ def main():
     dev = torch.device("cuda")
 
     # the CPU halves of the card-against-CPU runs, meanwhile
-    start_cpu_worker()
+    start_cpu_worker(only)
     try:
-        return run_phases(dev, card, np, torch)
+        return run_phases(dev, card, np, torch, only)
     finally:
         stop_cpu_worker()
 
 
-def run_phases(dev, card, np, torch):
-    """Phases 2 to 17."""
+# the phases after the build, in order: the thirteen slices, then memory
+# mode and generated assets
+PHASES = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
+          "bigfish", "dodgeball", "bossfight", "climber", "ninja", "chaser", "memory",
+          "genassets")
+
+
+def run_phases(dev, card, np, torch, only=None):
+    """Phases 2 to 19 (with ``only``, the named phases of ``PHASES``; with
+    no arguments, all of them).  Prints each phase's wall seconds on a line
+    before the kernels line."""
     from procgen_tpu_torch import kernels
 
     # -- 2. build ----------------------------------------------------------
@@ -479,28 +539,49 @@ def run_phases(dev, card, np, torch):
     info = kernels.BUILD_INFO
     log("build", f"nvcc {info['seconds']:.2f}s (load {time.perf_counter() - t0:.2f}s) "
         f"{' | '.join(info.get('ptxas', []))}")
+    walls = {"build": time.perf_counter() - t0}
 
-    runs, rows = zip(maze_phase(dev, card, np, torch),
-                     miner_phase(dev, card, np, torch),
-                     coinrun_phase(dev, card, np, torch),
-                     fruitbot_phase(dev, card, np, torch),
-                     starpilot_phase(dev, card, np, torch),
-                     plunder_phase(dev, card, np, torch),
-                     entity_suffix_phase("leaper", (0, 1, 2), 31, dev, card, np, torch),
-                     entity_suffix_phase("bigfish", (0, 1), 37, dev, card, np, torch),
-                     dodgeball_phase(dev, card, np, torch),
-                     bossfight_phase(dev, card, np, torch),
-                     climber_phase(dev, card, np, torch))
-    rows = (list(rows) + [memory_phase(dev, card, np, torch)]
-            + genassets_phase(dev, card, np, torch))
+    phases = {
+        "maze": lambda: maze_phase(dev, card, np, torch),
+        "miner": lambda: miner_phase(dev, card, np, torch),
+        "coinrun": lambda: coinrun_phase(dev, card, np, torch),
+        "fruitbot": lambda: fruitbot_phase(dev, card, np, torch),
+        "starpilot": lambda: starpilot_phase(dev, card, np, torch),
+        "plunder": lambda: plunder_phase(dev, card, np, torch),
+        "leaper": lambda: entity_suffix_phase("leaper", (0, 1, 2), 31, dev, card, np,
+                                              torch, EARLY_WARM, EARLY_TIMED),
+        "bigfish": lambda: entity_suffix_phase("bigfish", (0, 1), 37, dev, card, np,
+                                               torch, EARLY_WARM, EARLY_TIMED),
+        "dodgeball": lambda: dodgeball_phase(dev, card, np, torch),
+        "bossfight": lambda: bossfight_phase(dev, card, np, torch),
+        "climber": lambda: climber_phase(dev, card, np, torch),
+        "ninja": lambda: ninja_phase(dev, card, np, torch),
+        "chaser": lambda: chaser_phase(dev, card, np, torch),
+        "memory": lambda: [memory_phase(dev, card, np, torch)],
+        "genassets": lambda: genassets_phase(dev, card, np, torch),
+    }
+    runs, rows = [], []
+    for name in PHASES:
+        if only is not None and name not in only:
+            continue
+        t0 = time.perf_counter()
+        out = phases[name]()
+        walls[name] = time.perf_counter() - t0
+        if name in ("memory", "genassets"):
+            rows += out
+        else:
+            runs.append((name, out[0]))
+            rows.append(out[1])
 
     # -- 16. profile: after every timed phase --------------------------------
-    names = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
-             "bigfish", "dodgeball", "bossfight", "climber")
-    for name, run in zip(names, runs):
+    t0 = time.perf_counter()
+    for name, run in runs:
         profile_slice(name, *run, np, torch)
+    walls["profile"] = time.perf_counter() - t0
 
     # -- 17. result ----------------------------------------------------------
+    log("walls", "phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; total {time.perf_counter() - T_START:.1f}")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -617,8 +698,17 @@ MEMORY = {"distribution_mode": "memory"}
 CPU_RUNS = (("maze", False, {}), ("miner", False, {}), ("coinrun", False, {}),
             ("fruitbot", False, {}), ("starpilot", True, {}), ("plunder", True, {}),
             ("leaper", True, {}), ("bigfish", True, {}), ("dodgeball", True, {}),
-            ("bossfight", True, {}), ("climber", True, {}),
-            ("maze", True, MEMORY), ("maze", True, GEN), ("coinrun", True, GEN))
+            ("bossfight", True, {}), ("climber", True, {}), ("ninja", True, {}),
+            ("chaser", True, {}), ("maze", True, MEMORY), ("maze", True, GEN),
+            ("coinrun", True, GEN))
+
+
+def run_phase(run):
+    """The phase of ``PHASES`` that makes a run of ``CPU_RUNS``."""
+    name, _, opts = run
+    if opts.get("distribution_mode") == "memory":
+        return "memory"
+    return "genassets" if opts.get("use_generated_assets") else name
 CPU_STEPS = 50
 CPU_THREADS = 4
 _CPU = {}  # the CPU worker: its process, queue, the runs it sent, the next run
@@ -644,28 +734,31 @@ def gym_run(name, device, states, opts, np):
     return out, sorted(inf), _leaves(state_to_numpy(env._vec.states)) if states else None
 
 
-def cpu_worker(queue):
-    """The CPU halves of ``CPU_RUNS``, in order, each put on ``queue`` as it
-    ends.  It runs in a process of its own, so that the card's phases do
-    not wait for the CPU."""
+def cpu_worker(queue, runs):
+    """The CPU halves of ``runs`` (of ``CPU_RUNS``), in order, each put on
+    ``queue`` as it ends.  It runs in a process of its own, so that the
+    card's phases do not wait for the CPU."""
     import numpy as np
     import torch
 
     torch.set_num_threads(CPU_THREADS)
-    for i, (name, states, opts) in enumerate(CPU_RUNS):
+    for i, (name, states, opts) in enumerate(runs):
         t0 = time.perf_counter()
         run = gym_run(name, "cpu", states, opts, np)
         queue.put((i, run, time.perf_counter() - t0))
 
 
-def start_cpu_worker():
+def start_cpu_worker(only=None):
+    """The CPU worker, for the runs of the phases in ``only`` (all when
+    None)."""
     import multiprocessing
 
+    runs = tuple(r for r in CPU_RUNS if only is None or run_phase(r) in only)
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
-    proc = ctx.Process(target=cpu_worker, args=(queue,), daemon=True)
+    proc = ctx.Process(target=cpu_worker, args=(queue, runs), daemon=True)
     proc.start()
-    _CPU.update(proc=proc, queue=queue, done={}, next=0)
+    _CPU.update(proc=proc, queue=queue, done={}, next=0, runs=runs)
 
 
 def stop_cpu_worker():
@@ -690,19 +783,21 @@ def cpu_run(i):
         except queue.Empty:
             if not proc.is_alive():
                 raise RuntimeError(f"the CPU worker ended (exit code {proc.exitcode}) "
-                                   f"before run {i} of {len(CPU_RUNS)}")
+                                   f"before run {i} of {len(_CPU['runs'])}")
     run, secs = done.pop(i)
     return run, secs, time.perf_counter() - t0
 
 
 def gpu_matches_cpu(name, np, torch, states=False, **opts):
-    """The next of ``CPU_RUNS`` (this game, these options) on the card,
-    against the CPU worker's run of it: obs, rewards, firsts and every
-    info field (latents included) equal at each of the 50 steps; with
-    ``states``, every leaf of the last states too."""
+    """The next of the worker's ``CPU_RUNS`` (this game, these options) on
+    the card, against the CPU worker's run of it: obs, rewards, firsts and
+    every info field (latents included) equal at each of the
+    ``CPU_STEPS`` steps; with ``states``, every leaf of the last states
+    too."""
     i = _CPU["next"]
-    if CPU_RUNS[i] != (name, states, opts):
-        raise AssertionError(f"card-against-CPU run {i} is {CPU_RUNS[i]}, not "
+    runs = _CPU["runs"]
+    if i >= len(runs) or runs[i] != (name, states, opts):
+        raise AssertionError(f"card-against-CPU run {i} is {runs[i:i + 1]}, not "
                              f"{(name, states, opts)}")
     _CPU["next"] = i + 1
     gpu, keys, g_leaves = gym_run(name, "cuda", states, opts, np)
@@ -761,7 +856,7 @@ def maze_phase(dev, card, np, torch):
     init, step, seeds = make_env_fns(NUM_ENVS, "maze", device=dev)
     carry = init(seeds)
     rng = np.random.RandomState(1)
-    for _ in range(50):
+    for _ in range(PRE_STEPS):
         acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
         carry, obs, rew, done = step(carry, acts)
     ent_f, ent_i = rk.prep(plan, carry.states)
@@ -798,8 +893,9 @@ def maze_phase(dev, card, np, torch):
     del carry, obs
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("maze", dev, card, np, torch)
-    total = WARM_STEPS + TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("maze", dev, card, np, torch, EARLY_WARM,
+                                                EARLY_TIMED)
+    total = EARLY_WARM + EARLY_TIMED
     if launches["render_suffix"] != total or launches["render_frame"] != 0:
         raise AssertionError(f"maze: launches {launches} in {total} steps")
 
@@ -879,11 +975,11 @@ def miner_phase(dev, card, np, torch):
     from procgen_tpu_torch.entry import make_env_fns
     from procgen_tpu_torch.render import render_kernel as rk
 
-    # kernel vs plain version: easy after 50 steps, hard, made-up
+    # kernel vs plain version: easy after PRE_STEPS steps, hard, made-up
     init, step, seeds = make_env_fns(NUM_ENVS, "miner", device=dev)
     carry = init(seeds)
     rng = np.random.RandomState(1)
-    for _ in range(50):
+    for _ in range(PRE_STEPS):
         acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
         carry, obs, rew, done = step(carry, acts)
     easy = _game("miner", 0)
@@ -909,15 +1005,16 @@ def miner_phase(dev, card, np, torch):
     cells = float(((x_syn.cell5[:, 3] > 0.5) & (x_syn.gtab >= x_syn.grid_opaque)).float().mean())
     del x_syn
     err = max(err, edge_frame_check(plan, 112, 0, 15, rk, torch))
-    log("miner", f"render_frame byte-equal: {NUM_ENVS} miner-easy states after 50 "
+    log("miner", f"render_frame byte-equal: {NUM_ENVS} miner-easy states after {PRE_STEPS} "
         f"steps, {NUM_ENVS} miner-hard states (NC {x_hard.gtab.shape[1]}, sA "
         f"{x_hard.grid_atlas.shape[1]}), {NUM_ENVS} made-up envs ({cells:.3f} of "
         f"cells valid and uncovered), {NUM_ENVS} envs of edge-case slots (cap 112); "
         f"max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("miner", dev, card, np, torch)
-    total = WARM_STEPS + TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("miner", dev, card, np, torch, EARLY_WARM,
+                                                EARLY_TIMED)
+    total = EARLY_WARM + EARLY_TIMED
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"miner: launches {launches} in {total} steps")
 
@@ -974,12 +1071,12 @@ def coinrun_phase(dev, card, np, torch):
         game.level_seed_low, game.level_seed_high = 0, INT32_MAX
         return game
 
-    # kernel vs plain version: easy after 50 steps under both cameras,
+    # kernel vs plain version: easy after PRE_STEPS steps under both cameras,
     # hard, made-up with both pools full
     init, step, seeds = make_env_fns(NUM_ENVS, "coinrun", device=dev)
     carry = init(seeds)
     rng = np.random.RandomState(1)
-    for _ in range(50):
+    for _ in range(PRE_STEPS):
         acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
         carry, obs, rew, done = step(carry, acts)
     world = rk.get_plan(_game("coinrun", 0))
@@ -1009,7 +1106,7 @@ def coinrun_phase(dev, card, np, torch):
     err = max(err, frame_check(x_syn, "made-up inputs, both pools full", rk, torch))
     del x_syn
     err = max(err, edge_frame_check(world, game.ENT_CAP, game.DECOR_CAP, 17, rk, torch))
-    log("coinrun", f"render_frame byte-equal: {NUM_ENVS} coinrun-easy states after 50 "
+    log("coinrun", f"render_frame byte-equal: {NUM_ENVS} coinrun-easy states after {PRE_STEPS} "
         f"steps ({trails} live trails) under the whole-world camera (NC {world.NC}, "
         f"sA {world.sA}) and the centred one (NC {cplan.NC}, sA {cplan.sA}), "
         f"{NUM_ENVS} coinrun-hard states after 20 steps ({trails_hard} live trails), "
@@ -1019,8 +1116,9 @@ def coinrun_phase(dev, card, np, torch):
     del x_hard
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("coinrun", dev, card, np, torch)
-    total = WARM_STEPS + TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("coinrun", dev, card, np, torch, EARLY_WARM,
+                                                EARLY_TIMED)
+    total = EARLY_WARM + EARLY_TIMED
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"coinrun: launches {launches} in {total} steps")
 
@@ -1042,7 +1140,7 @@ def coinrun_phase(dev, card, np, torch):
     del x, xc
 
     # the gym3 surface at full width: act + observe, the centred camera
-    gym_centred("coinrun", card, np, torch)
+    gym_centred("coinrun", card, np, torch, EARLY_GYM_TIMED)
 
     keys = gpu_matches_cpu("coinrun", np, torch)
     checked = replay_on_card("coinrun_easy")
@@ -1053,17 +1151,18 @@ def coinrun_phase(dev, card, np, torch):
                                              plain_ms, b_ms, b_by)
 
 
-def gym_centred(name, card, np, torch):
+def gym_centred(name, card, np, torch, timed=GYM_TIMED_STEPS):
     """The gym3 surface at full width, act + observe, the centred camera
-    (``ProcgenGym3Env``'s default): ``GYM_TIMED_STEPS`` timed steps after
-    10; returns the render_frame launches in the timed steps."""
+    (``ProcgenGym3Env``'s default): ``timed`` timed steps after 10
+    (``GYM_TIMED_STEPS`` unless given); returns the render_frame
+    launches in the timed steps."""
     from procgen_tpu_torch import ProcgenGym3Env
     from procgen_tpu_torch.render import render_kernel as rk
 
     env = ProcgenGym3Env(num=NUM_ENVS, env_name=name, distribution_mode="easy",
                          rand_seed=0, device="cuda")
     arng = np.random.RandomState(5)
-    acts = arng.randint(0, 15, size=(10 + GYM_TIMED_STEPS, NUM_ENVS)).astype(np.int32)
+    acts = arng.randint(0, 15, size=(10 + timed, NUM_ENVS)).astype(np.int32)
     for a in acts[:10]:
         env.act(a)
         env.observe()
@@ -1075,11 +1174,11 @@ def gym_centred(name, card, np, torch):
         rew_, obs_, first_ = env.observe()
     dt = time.perf_counter() - t0
     n_gym = rk.LAUNCHES["render_frame"] - before
-    if obs_["rgb"].shape != (NUM_ENVS, 64, 64, 3) or n_gym != GYM_TIMED_STEPS:
+    if obs_["rgb"].shape != (NUM_ENVS, 64, 64, 3) or n_gym != timed:
         raise AssertionError(f"gym3 {name}: obs {obs_['rgb'].shape}, {n_gym} launches")
-    log(name, f"ProcgenGym3Env centred: {GYM_TIMED_STEPS * NUM_ENVS / dt:.1f} "
-        f"env-steps/s ({dt / GYM_TIMED_STEPS * 1e3:.2f} ms per act+observe, "
-        f"{NUM_ENVS} envs, {GYM_TIMED_STEPS} timed steps after 10, obs copied to "
+    log(name, f"ProcgenGym3Env centred: {timed * NUM_ENVS / dt:.1f} "
+        f"env-steps/s ({dt / timed * 1e3:.2f} ms per act+observe, "
+        f"{NUM_ENVS} envs, {timed} timed steps after 10, obs copied to "
         f"the host) on {card}; {n_gym} render_frame launches")
     return n_gym
 
@@ -1097,12 +1196,12 @@ def fruitbot_phase(dev, card, np, torch):
         game.level_seed_low, game.level_seed_high = 0, INT32_MAX
         return game
 
-    # kernel vs plain version: easy after 50 steps under both cameras,
+    # kernel vs plain version: easy after PRE_STEPS steps under both cameras,
     # hard, made-up tiled rects
     init, step, seeds = make_env_fns(NUM_ENVS, "fruitbot", device=dev)
     carry = init(seeds)
     rng = np.random.RandomState(1)
-    for _ in range(50):
+    for _ in range(PRE_STEPS):
         acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
         carry, obs, rew, done = step(carry, acts)
     world = rk.get_plan(game_of(0, False))
@@ -1133,7 +1232,7 @@ def fruitbot_phase(dev, card, np, torch):
     del x_syn
     err = max(err, edge_frame_check(world, world.game.ENT_CAP, 0, 19, rk, torch))
     log("fruitbot", f"render_frame byte-equal: {NUM_ENVS} fruitbot-easy states after "
-        f"50 steps ({live} live slots) under the whole-world camera (NC {world.NC}, "
+        f"{PRE_STEPS} steps ({live} live slots) under the whole-world camera (NC {world.NC}, "
         f"tile height {tile_h:.6f} px) "
         f"and the centred one (NC {cplan.NC}), {NUM_ENVS} fruitbot-hard states after "
         f"20 steps ({live_hard} live slots), {NUM_ENVS} made-up tiled envs, "
@@ -1141,8 +1240,9 @@ def fruitbot_phase(dev, card, np, torch):
         f"max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("fruitbot", dev, card, np, torch)
-    total = WARM_STEPS + TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("fruitbot", dev, card, np, torch, EARLY_WARM,
+                                                EARLY_TIMED)
+    total = EARLY_WARM + EARLY_TIMED
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"fruitbot: launches {launches} in {total} steps")
 
@@ -1166,7 +1266,7 @@ def fruitbot_phase(dev, card, np, torch):
         f"world: {occupancy(rk.frame_occupancy(x))}")
     del x, xc, x_hard
 
-    gym_centred("fruitbot", card, np, torch)
+    gym_centred("fruitbot", card, np, torch, EARLY_GYM_TIMED)
     keys = gpu_matches_cpu("fruitbot", np, torch)
     checked = replay_on_card("fruitbot_easy")
     log("fruitbot", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, "
@@ -1237,12 +1337,12 @@ def starpilot_phase(dev, card, np, torch):
         f"products at every distinct rand01 value: card and CPU bit-equal on {n_trig} "
         f"outputs, |x| >= 120 among them, no NaN ({time.perf_counter() - t0:.1f} s)")
 
-    # kernel vs plain version: easy after 50 steps under both cameras,
+    # kernel vs plain version: easy after PRE_STEPS steps under both cameras,
     # hard and extreme after 20, made-up scroll offsets
     init, step, seeds = make_env_fns(NUM_ENVS, "starpilot", device=dev)
     carry = init(seeds)
     rng = np.random.RandomState(1)
-    for _ in range(50):
+    for _ in range(PRE_STEPS):
         acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
         carry, obs, rew, done = step(carry, acts)
     world = rk.get_plan(game_of(0, False))
@@ -1276,7 +1376,7 @@ def starpilot_phase(dev, card, np, torch):
     g = world.game
     err = max(err, edge_frame_check(world, g.ENT_CAP, g.DECOR_CAP, 21, rk, torch))
     log("starpilot", f"render_frame byte-equal: {NUM_ENVS} starpilot-easy states after "
-        f"50 steps ({live} live slots, {booms} explosions) under the whole-world "
+        f"{PRE_STEPS} steps ({live} live slots, {booms} explosions) under the whole-world "
         f"camera (NC {world.NC}) and the centred one (NC {cplan.NC}), {NUM_ENVS} hard "
         f"and {NUM_ENVS} extreme states after 20 steps ({live_other[1]} and "
         f"{live_other[2]} live slots), {NUM_ENVS} made-up scrolled envs, {NUM_ENVS} "
@@ -1284,8 +1384,9 @@ def starpilot_phase(dev, card, np, torch):
         f"max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("starpilot", dev, card, np, torch)
-    total = WARM_STEPS + TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("starpilot", dev, card, np, torch, EARLY_WARM,
+                                                EARLY_TIMED)
+    total = EARLY_WARM + EARLY_TIMED
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"starpilot: launches {launches} in {total} steps")
 
@@ -1306,7 +1407,7 @@ def starpilot_phase(dev, card, np, torch):
         f"{occupancy(rk.frame_occupancy(x))}")
     del x, xc
 
-    gym_centred("starpilot", card, np, torch)
+    gym_centred("starpilot", card, np, torch, EARLY_GYM_TIMED)
     keys = gpu_matches_cpu("starpilot", np, torch, states=True)
     checked = replay_on_card("starpilot_easy")
     log("starpilot", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, "
@@ -1332,12 +1433,12 @@ def plunder_phase(dev, card, np, torch):
     from procgen_tpu_torch.entry import make_env_fns
     from procgen_tpu_torch.render import render_kernel as rk
 
-    # kernel vs plain version: easy after 50 steps of the slice's program,
+    # kernel vs plain version: easy after PRE_STEPS steps of the slice's program,
     # hard after 30, made-up inputs with a full decor pool
     init, step, seeds = make_env_fns(NUM_ENVS, "plunder", device=dev)
     carry = init(seeds)
     rng = np.random.RandomState(1)
-    for _ in range(50):
+    for _ in range(PRE_STEPS):
         acts = torch.as_tensor(rng.choice([9, 9, 1, 7, 4, 12], size=NUM_ENVS), device=dev)
         carry, obs, rew, done = step(carry, acts)
     plan = rk.get_plan(_game("plunder", 0))
@@ -1376,15 +1477,16 @@ def plunder_phase(dev, card, np, torch):
     if booms == 0 or booms_hard == 0:
         raise AssertionError(f"plunder: no live explosions ({booms}, {booms_hard})")
     log("plunder", f"render_suffix (decor instance) byte-equal: {NUM_ENVS} plunder-easy "
-        f"states after 50 steps ({live} live slots, {booms} explosions), {NUM_ENVS} "
+        f"states after {PRE_STEPS} steps ({live} live slots, {booms} explosions), {NUM_ENVS} "
         f"plunder-hard states after 30 steps ({booms_hard} explosions), {NUM_ENVS} "
         f"made-up envs (cap {game.ENT_CAP}, dcap {game.DECOR_CAP}), {NUM_ENVS} envs of "
         f"edge-case slots at those caps; max_abs_err {err}")
     del base, ent_f, ent_i, decor
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("plunder", dev, card, np, torch)
-    total = WARM_STEPS + TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("plunder", dev, card, np, torch, EARLY_WARM,
+                                                EARLY_TIMED)
+    total = EARLY_WARM + EARLY_TIMED
     if launches["render_suffix"] != total or launches["render_frame"] != 0:
         raise AssertionError(f"plunder: launches {launches} in {total} steps")
 
@@ -1527,8 +1629,8 @@ def dodgeball_phase(dev, card, np, torch):
     caps (72 entity slots, 16 dust clouds), with the lava walls tiled along
     either axis and the rotation banks of the balls, the agent and the
     enemies.  ``render_suffix`` against its plain version on the prep of
-    4096 easy states after 50 steps of the slice's program, of 4096 hard
-    and 4096 extreme states after 30, and on 4096 envs of edge-case slots
+    4096 easy states after ``PRE_STEPS`` steps of the slice's program, of
+    4096 hard and 4096 extreme states after 30, and on 4096 envs of edge-case slots
     at those caps with made-up walls and bank rows; the slice, the
     kernel's time and bound, card against CPU, the easy recording.
     Returns ((carry, step, ms a step), the kernels line's row)."""
@@ -1545,7 +1647,7 @@ def dodgeball_phase(dev, card, np, torch):
     init, step, seeds = make_env_fns(NUM_ENVS, "dodgeball", device=dev)
     carry = init(seeds)
     rng = np.random.RandomState(1)
-    for _ in range(50):
+    for _ in range(PRE_STEPS):
         acts = torch.as_tensor(rng.choice([9, 9, 1, 3, 5, 7, 4], size=NUM_ENVS), device=dev)
         carry, obs, rew, done = step(carry, acts)
     s = carry.states
@@ -1592,8 +1694,9 @@ def dodgeball_phase(dev, card, np, torch):
         f"y and bank rows; max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("dodgeball", dev, card, np, torch)
-    total = WARM_STEPS + TIMED_STEPS
+    carry, launches, step, wall_ms = run_slice("dodgeball", dev, card, np, torch, EARLY_WARM,
+                                                EARLY_TIMED)
+    total = EARLY_WARM + EARLY_TIMED
     if launches["render_suffix"] != total or launches["render_frame"] != 0:
         raise AssertionError(f"dodgeball: launches {launches} in {total} steps")
 
@@ -1823,6 +1926,175 @@ def climber_phase(dev, card, np, torch):
         f"firsts, {', '.join(keys)}); climber_easy replay exact ({checked} steps)")
     return (carry, step, wall_ms), frame_row("climber", launches, err, kernel_ms,
                                              plain_ms, b_ms, b_by)
+
+def ninja_phase(dev, card, np, torch):
+    """Ninja: the whole-frame kernel over the 64x64 world and under the
+    agent-centred camera, the throwing stars' grid dispatch on the main
+    path.  The slice first; then ``render_frame`` against its plain version
+    on the prep of the slice's 4096 easy states and of 4096 hard states
+    after 20 steps of jumps and throws, each under the whole-world camera
+    (a 64-cell window) and the centred one (``visibility + 3`` cells: 13
+    easy, 19 hard), and on 4096 envs of edge-case slots in the centred
+    window; the kernel's time and bound under both cameras on the slice's
+    states, the instances' occupancy, the centred ``ProcgenGym3Env``, card
+    against CPU, the easy recording.  Returns ((carry, step, ms a step),
+    the kernels line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core.constants import INT32_MAX
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.games.ninja import THROWING_STAR, Ninja
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    def game_of(mode, centred):
+        game = Ninja(GameOptions(distribution_mode=mode, center_agent=centred))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        return game
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("ninja", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"ninja: launches {launches} in {total} steps")
+
+    # kernel vs plain version under both cameras: the slice's easy states,
+    # hard states after 20 steps, edge-case slots in the centred window
+    hard = game_of(1, False)
+    seeds = torch.as_tensor(np.random.RandomState(59).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    hs = lifecycle.env_reset(hard, lifecycle.initial_state(hard, seeds))
+    rng = np.random.RandomState(1)
+    for _ in range(20):
+        acts = torch.as_tensor(rng.choice([2, 5, 8, 9, 10, 11, 12, 4], size=NUM_ENVS),
+                               device=dev)
+        hs, _ = lifecycle.env_step(hard, hs, acts)
+    err, windows, xs = 0, {}, {}
+    for mode, st in ((0, carry.states), (1, hs)):
+        for centred in (False, True):
+            plan = rk.get_plan(game_of(mode, centred))
+            x = rk.prep_frame(plan, st)
+            windows[(mode, centred)] = (x.gtab.shape[1], float(x.sf[0, rk.SF_VIS]))
+            err = max(err, frame_check(x, f"ninja mode {mode} states, "
+                                          f"{'centred' if centred else 'whole world'}",
+                                       rk, torch))
+            if mode == 0:
+                xs[centred] = x
+    stars = {m: int((st.ents.active & (st.ents.type == THROWING_STAR)).sum())
+             for m, st in ((0, carry.states), (1, hs))}
+    live = {0: int(carry.states.ents.count.sum()), 1: int(hs.ents.count.sum())}
+    del hs, x
+    if windows[(0, False)][0] != 64 or windows[(0, True)] != (13, 10.0) \
+            or windows[(1, True)] != (19, 16.0):
+        raise AssertionError(f"ninja: windows (NC, view) {windows}")
+    cplan = rk.get_plan(game_of(0, True))
+    err = max(err, edge_frame_check(cplan, cplan.game.ENT_CAP, 0, 59, rk, torch))
+    log("ninja", f"render_frame byte-equal: {NUM_ENVS} states of each mode (0: the "
+        f"slice's, 1: after 20 steps) ({live} live slots, {stars} throwing stars) under "
+        f"the whole-world camera and the centred one (window NC and view cells by "
+        f"(mode, centred): {windows}), {NUM_ENVS} envs of edge-case slots in the centred "
+        f"window (cap {cplan.game.ENT_CAP}); max_abs_err {err}")
+
+    # the kernel's time against the plain version's, on the slice's states
+    # under both cameras
+    x, xc = xs[False], xs[True]
+    kernel_ms, plain_ms, readings = time_frame(x, rk)
+    b_ms, b_by, b_work = frame_bound(x, rk, torch)
+    kc_ms, pc_ms, creadings = time_frame(xc, rk)
+    bc_ms, bc_by, bc_work = frame_bound(xc, rk, torch)
+    log("ninja", f"render_frame at N={NUM_ENVS} ({live[0]} live slots): whole-world "
+        f"camera (NC 64) kernel {kernel_ms:.4f} ms, plain torch {plain_ms:.4f} ms (kernel, "
+        f"plain, kernel, plain: {readings}), bound {b_ms:.4f} ms ({b_by}; {b_work}), the "
+        f"kernel at {100 * b_ms / kernel_ms:.1f}% of it; centred (NC 13) kernel {kc_ms:.4f} "
+        f"ms, plain {pc_ms:.4f} ms ({creadings}), bound {bc_ms:.4f} ms ({bc_by}; "
+        f"{bc_work}), {100 * bc_ms / kc_ms:.1f}%, on {card}; <BG_CROP> instance, whole "
+        f"world: {occupancy(rk.frame_occupancy(x))}; centred: "
+        f"{occupancy(rk.frame_occupancy(xc))}")
+    del x, xc, xs
+
+    gym_centred("ninja", card, np, torch)
+    keys = gpu_matches_cpu("ninja", np, torch, states=True)
+    checked = replay_on_card("ninja_easy")
+    log("ninja", f"64 envs x {CPU_STEPS} steps: GPU and CPU bit-equal (obs, rewards, "
+        f"firsts, {', '.join(keys)}); ninja_easy replay exact ({checked} steps)")
+    return (carry, step, wall_ms), frame_row("ninja", launches, err, kernel_ms,
+                                             plain_ms, b_ms, b_by)
+
+
+def chaser_phase(dev, card, np, torch):
+    """Chaser: the whole-frame kernel under the static camera over the maze
+    (11, 13 and 19 cells), its orbs the first colored cells drawn at a
+    fractional inset (0.3 of a cell).  The slice first; then
+    ``render_frame`` against its plain version on the prep of the slice's
+    4096 easy states and of 4096 hard and 4096 extreme states after 20
+    steps, on 4096 envs of each window whose pixels fall a few ulps from
+    the orbs' edges (``synthetic_orb_inputs``), and on 4096 envs of
+    edge-case slots; the kernel's time and bound in each window and the
+    instances' occupancy; card against CPU; the easy recording.  The game
+    forces the static camera, so it has no centred gym3 run.  Returns
+    ((carry, step, ms a step), the kernels line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.games.chaser import ORB
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("chaser", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"chaser: launches {launches} in {total} steps")
+
+    # kernel vs plain version in each mode's window: the slice's easy
+    # states, hard and extreme states after 20 steps
+    seeds = torch.as_tensor(np.random.RandomState(61).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    rng = np.random.RandomState(1)
+    err, timed, occ, orbs, edges = 0, {}, {}, {}, {}
+    for mode in (0, 1, 2):
+        game = _game("chaser", mode)
+        plan = rk.get_plan(game)
+        if mode == 0:
+            st = carry.states
+        else:
+            st = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+            for _ in range(20):
+                acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+                st, _ = lifecycle.env_step(game, st, acts)
+        x = rk.prep_frame(plan, st)
+        if plan.static or x.gtab.shape[1] != game.maze_dim \
+                or float(x.sf[0, rk.SF_VIS]) != game.maze_dim:
+            raise AssertionError(f"chaser mode {mode}: window of {x.gtab.shape[1]} cells")
+        orbs[mode] = int((st.grid == ORB).sum())
+        err = max(err, frame_check(x, f"chaser mode {mode} states (NC {plan.NC})", rk, torch))
+        timed[mode] = (plan.NC, *time_frame(x, rk), *frame_bound(x, rk, torch))
+        occ[mode] = occupancy(rk.frame_occupancy(x))
+        # pixels a few ulps from the orbs' edges in this window
+        xo = rk.synthetic_orb_inputs(NUM_ENVS, plan.NC, plan.on("grid", dev),
+                                     plan.on("bg", dev), plan.atlas(dev), plan.grid_opaque,
+                                     seed=61 + mode).to(dev)
+        edges[mode] = int(rk.orb_edge_pixels(xo).sum())
+        err = max(err, frame_check(xo, f"orb-edge pixels, NC {plan.NC}", rk, torch))
+        if mode > 0:
+            del st
+        del x, xo
+    plan0 = rk.get_plan(_game("chaser", 0))
+    err = max(err, edge_frame_check(plan0, plan0.game.ENT_CAP, 0, 61, rk, torch))
+    log("chaser", f"render_frame byte-equal: {NUM_ENVS} states of each mode (0: the "
+        f"slice's, 1 and 2: after 20 steps; small orbs on the grid by mode: {orbs}), "
+        f"{NUM_ENVS} envs of orb-edge pixels in each window (pixels within 8 ulps of the "
+        f"0.3 inset's edges by mode: {edges}), {NUM_ENVS} envs of edge-case slots (cap "
+        f"{plan0.game.ENT_CAP}); max_abs_err {err}")
+    for mode, (NC, k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
+        log("chaser", f"render_frame (mode {mode}, NC {NC}) at N={NUM_ENVS}: kernel "
+            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel, plain: "
+            f"{readings}), bound {b_ms:.4f} ms ({b_by}; {work}), the kernel at "
+            f"{100 * b_ms / k_ms:.1f}% of it, on {card}; <BG_CROP> instance: {occ[mode]}")
+
+    keys = gpu_matches_cpu("chaser", np, torch, states=True)
+    checked = replay_on_card("chaser_easy")
+    log("chaser", f"64 envs x {CPU_STEPS} steps: GPU and CPU bit-equal (obs, rewards, "
+        f"firsts, {', '.join(keys)}); chaser_easy replay exact ({checked} steps)")
+    _, kernel_ms, plain_ms, _, b_ms, b_by, _ = timed[0]
+    return (carry, step, wall_ms), frame_row("chaser", launches, err, kernel_ms,
+                                             plain_ms, b_ms, b_by)
+
 
 # memory mode's states for the kernel checks: (game, random steps after
 # the reset); miner's gravity sweep over its 35x35 world is a host loop of
@@ -2117,7 +2389,7 @@ def genassets_phase(dev, card, np, torch):
                        ("miner", (False,)), ("starpilot", (False,))):
         game = game_of(name, False)
         s = lifecycle.env_reset(game, lifecycle.initial_state(game, big_seeds))
-        for _ in range(50):
+        for _ in range(PRE_STEPS):
             acts = torch.as_tensor(arng.randint(0, 15, size=NUM_ENVS), device=dev)
             s, _ = lifecycle.env_step(game, s, acts)
         for centred in cams:
@@ -2149,7 +2421,7 @@ def genassets_phase(dev, card, np, torch):
                     f"{ka_ms:.4f} ms ({areadings}) on {card}")
         del s
     log("genassets", f"render_frame byte-equal on the painted canvas: {NUM_ENVS} "
-        f"states after 50 steps each of coinrun (whole-world and centred cameras), "
+        f"states after {PRE_STEPS} steps each of coinrun (whole-world and centred cameras), "
         f"fruitbot (tiled), miner and starpilot (cropped), and {NUM_ENVS} envs of "
         f"edge-case slots over coinrun's canvases; max_abs_err {err}")
 
@@ -2287,4 +2559,4 @@ def step_split(carry, actions, name, torch, game=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -7,8 +7,10 @@ field names, dtypes and per-env shapes behind a leading ``[N]`` axis.  The
 port carries the subset of ``BasicAbstractGame`` that the ported games
 reach: grid-step and sub-stepped continuous movement (the agent with the
 entity-scan hook, the other smart movers batched over a compacted slot
-window), the vectorised collision dispatch with the agent's grid probe
-and the entity-pair hook, erase of both pools, the spawn test over both
+window), the vectorised collision dispatch with the agent's grid probe,
+the entity-pair hook and the grid hook of games whose grid handler acts
+on other movers (``dispatch_grid_vec`` over every slot's ``probe_cells``),
+erase of both pools, the spawn test over both
 pools (``spawn_blocked``), the grid reads and writes, the reset path's
 RNG helpers, the rejection placement of ``reposition``
 (``place_by_rejection``, batched over the envs) and of
@@ -705,15 +707,44 @@ class BasicAbstractGame:
         if self.ANY_COLLIDES_WITH_ENTITIES:
             s, d = self.dispatch_entity_pairs(s, d)
         if type(self).handle_grid_collision is not BasicAbstractGame.handle_grid_collision:
-            if not self.GRID_HANDLER_AGENT_ONLY:
-                raise NotImplementedError(
-                    f"{self.name}: the grid dispatch of non-agent movers is not ported"
-                )
-            s2, d2 = self.check_grid_collisions(s, d, 0)
-            do = s.ents.smart_step[:, 0] & (s.ents.count > 0)
-            s = tree_where(do, s2, s)
-            d = tree_where(do, d2, d)
+            if self.GRID_HANDLER_AGENT_ONLY:
+                s2, d2 = self.check_grid_collisions(s, d, 0)
+                do = s.ents.smart_step[:, 0] & (s.ents.count > 0)
+                s = tree_where(do, s2, s)
+                d = tree_where(do, d2, d)
+            else:
+                # the game's vectorised form of the reverse per-slot grid
+                # dispatch of every smart mover
+                s, d = self.dispatch_grid_vec(s, d)
         return s, d
+
+    def dispatch_grid_vec(self, s: BasicState, d):
+        """The grid dispatch of ``DISPATCH_VECTORIZED`` games whose grid
+        handler acts on smart movers other than the agent: each such game
+        overrides it with a vectorised form of the reverse per-slot scan."""
+        raise NotImplementedError(
+            f"{self.name}: DISPATCH_VECTORIZED without GRID_HANDLER_AGENT_ONLY "
+            "requires a dispatch_grid_vec override"
+        )
+
+    def probe_cells(self, s: BasicState):
+        """The cells ``check_grid_collisions`` probes, for every slot at
+        once (cpp:145-165): (ix, iy, in_range, gtype), each [N, cap,
+        GRID_COLLISION_RANGE**2] in (dx, dy) probe order."""
+        e = s.ents
+        min_x = torch.trunc(e.x - (e.rx + POS_EPS)).to(i32)
+        max_x = torch.trunc(e.x + (e.rx + POS_EPS)).to(i32)
+        min_y = torch.trunc(e.y - (e.ry + POS_EPS)).to(i32)
+        max_y = torch.trunc(e.y + (e.ry + POS_EPS)).to(i32)
+        r = self.GRID_COLLISION_RANGE
+        offs = torch.arange(r, dtype=i32, device=e.x.device)
+        ox = offs.repeat_interleave(r)  # (dx, dy) order: dy fastest
+        oy = offs.repeat(r)
+        ix = min_x[..., None] + ox
+        iy = min_y[..., None] + oy
+        inr = (ix <= max_x[..., None]) & (iy <= max_y[..., None])
+        gtype = self.get_obj_from_floats(s, ix.to(f32), iy.to(f32))
+        return ix, iy, inr, gtype
 
     def dispatch_sequential(self, s: BasicState, d):
         """The reverse scan of cpp:728-750 for games whose handlers do not

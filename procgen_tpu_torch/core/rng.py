@@ -161,6 +161,34 @@ def randrange(state: MTState, low, high):
     return state, _randrange_from(f, low, high)
 
 
+def simple_choose(state: MTState, count, k_max: int, num, size: int):
+    """RandGen::simple_choose (randgen.cpp:70-88): up to ``k_max`` distinct
+    picks of ``[0, count)`` per env by rejection, ``num`` of them (an int
+    or [N]); ``count`` (an int or [N]) is at most ``size``.  Returns
+    (stream, picks int32 [N, k_max], -1 past ``num``).  A pick an env does
+    not make draws nothing; each rejection round draws only for the envs
+    whose last pick was taken, and costs one host read, of whether any
+    env is still rejecting."""
+    n = state.pos.shape[0]
+    dev = state.pos.device
+    high = torch.as_tensor(count, device=dev).expand(n).clamp_min(1)
+    used = torch.zeros((n, size), dtype=torch.bool, device=dev)
+    picks = []
+    for j in range(k_max):
+        do = torch.as_tensor(j < num, device=dev).expand(n)
+        st, v = randn(state, high)
+        rej = do & used.gather(1, v.long()[:, None])[:, 0]
+        while bool(rej.any()):
+            st2, v2 = randn(st, high)
+            st = _sel(rej, st2, st)
+            v = torch.where(rej, v2, v)
+            rej = rej & used.gather(1, v.long()[:, None])[:, 0]
+        state = _sel(do, st, state)
+        used.scatter_(1, v.long()[:, None], used.gather(1, v.long()[:, None]) | do[:, None])
+        picks.append(torch.where(do, v, -1))
+    return state, torch.stack(picks, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Hot-path block draws: one twist per step, cheap cursor draws.
 # ---------------------------------------------------------------------------

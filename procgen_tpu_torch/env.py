@@ -4,8 +4,9 @@ keyword that defaults to ``"cuda"`` (without a card construction raises;
 pass ``device="cpu"`` to run on the CPU).  ``ProcgenGym3Env`` mirrors the
 gym3 surface (observe / act / get_info / keys_to_act / callmethod
 ``set_latent_state``); ``ProcgenEnv`` is the baselines-VecEnv-style
-wrapper.  The games that force the whole-world camera (plunder, leaper,
-bigfish) keep it under the gym3 default ``center_agent=True``.  Not
+wrapper.  The games that force the static camera (plunder, leaper,
+bigfish, bossfight, chaser) keep it under the gym3 default
+``center_agent=True``.  Not
 ported yet: ``render_mode="rgb_array"``, get_state / set_state, joint
 games (ROADMAP.md Queue 1).
 """

@@ -56,31 +56,6 @@ class MinerState:
         return dataclasses.replace(self, **kw)
 
 
-def simple_choose(g: rng.MTState, area: int, k: int):
-    """``k`` distinct cells of ``[0, area)`` per env by rejection sampling
-    (RandGen::simple_choose, randgen.cpp:70-88).  Returns (stream, picks
-    int32 [N, k]).
-
-    Each rejection round draws only for the envs whose last pick was taken
-    (a masked select of the stream), so every env's stream advances exactly
-    as the reference's; a round costs one host read, of whether any env is
-    still rejecting."""
-    n = g.pos.shape[0]
-    taken = torch.zeros((n, area), dtype=torch.bool, device=g.pos.device)
-    picks = []
-    for _ in range(k):
-        g, v = rng.randn(g, area)
-        rej = taken.gather(1, v.long()[:, None])[:, 0]
-        while bool(rej.any()):
-            g2, v2 = rng.randn(g, area)
-            g = rng._sel(rej, g2, g)
-            v = torch.where(rej, v2, v)
-            rej = rej & taken.gather(1, v.long()[:, None])[:, 0]
-        taken.scatter_(1, v.long()[:, None], True)
-        picks.append(v)
-    return g, torch.stack(picks, dim=1)
-
-
 @register("miner")
 class Miner(BasicAbstractGame):
     name = "miner"
@@ -212,7 +187,7 @@ class Miner(BasicAbstractGame):
         num_mud = int(12 / 400.0 * area)
         k = num_diamonds + num_boulders + num_mud + 1
 
-        g, picks = simple_choose(s.rand_gen, area, k)
+        g, picks = rng.simple_choose(s.rand_gen, area, k, k, area)
         s = s.replace(rand_gen=g)
 
         agent_cell = picks[:, 0]

@@ -173,3 +173,80 @@ def place_objects(g, grid, free_cells, num_free, maze_dim, mdim_max: int,
         _put(grid, gp, torch.full_like(gp, start_obj + j), torch.ones_like(need))
 
     return g, grid, free_cells
+
+
+def _dead_end_cells(dims, mdim_max: int):
+    """The maze cells ``generate_maze_no_dead_ends`` can open a wall at,
+    as (x, y) maze coordinates in ascending order, for mazes of the
+    sizes ``dims``.  A Kruskal maze carves every room (both coordinates
+    even) and never a pillar (both odd); a carved passage between two
+    rooms always has those two as SPACE neighbours, so it is never a dead
+    end, and a fix opens only a wall next to the cell it fixes.  So only
+    rooms can be fixed, and, in a maze of even size, the cells of its last
+    row and column, which no wall of the list carves."""
+    cells = set()
+    for dim in dims:
+        for y in range(dim):
+            for x in range(dim):
+                room = x % 2 == 0 and y % 2 == 0
+                strip = dim % 2 == 0 and (x == dim - 1 or y == dim - 1)
+                if room or strip:
+                    cells.add((y, x))
+    assert all(x < mdim_max and y < mdim_max for y, x in cells)
+    return [(x, y) for y, x in sorted(cells)]
+
+
+def generate_maze_no_dead_ends(g: rng.MTState, maze_dim: torch.Tensor, mdim_max: int):
+    """mazegen.cpp:190-211: ``generate_maze``, then at every dead end (a
+    SPACE cell with one SPACE neighbour and a wall) open one of its walls
+    at random, in ascending cell order, later cells seeing earlier
+    fixes.  Returns what ``generate_maze`` returns.
+
+    The draws, one a dead end, come from one upfront block of a stream
+    (``rng.draw_block``), which then advances by the count consumed.  The
+    JAX package walks every cell of the buffer; only the cells of
+    ``_dead_end_cells`` can be fixed, so the loop visits those, in the
+    same order, each iteration batched over the envs.  Neighbours outside
+    the maze's interior read as -1, as there: the walk runs on a copy of
+    the grid whose border is -1."""
+    g, grid, free_cells, num_free, in_free = generate_maze(g, maze_dim, mdim_max)
+    dev = maze_dim.device
+    n = maze_dim.shape[0]
+    adim_max = mdim_max + 2
+    array_dim = (maze_dim + 2)[:, None]
+
+    # the interior of each env's maze in the flat buffer (stride array_dim)
+    flat = torch.arange(adim_max * adim_max, device=dev)[None, :]
+    fx = torch.remainder(flat, array_dim)
+    fy = torch.div(flat, array_dim, rounding_mode="floor")
+    interior = ((fx > 0) & (fx < array_dim - 1) & (fy > 0) & (fy < array_dim - 1)
+                & (flat < array_dim * array_dim))
+    work = torch.where(interior, grid, -1)
+
+    dims = sorted(set(maze_dim.tolist()))
+    cells = torch.as_tensor(_dead_end_cells(dims, mdim_max), device=dev)  # [K, 2]
+    # get_neighbors order (mazegen.cpp:50-69): the cell, then its four
+    offs = torch.as_tensor([(0, 0), (-1, 0), (0, -1), (0, 1), (1, 0)], device=dev)
+    px = cells[:, None, 0] + MAZE_OFFSET + offs[None, :, 0]  # [K, 5]
+    py = cells[:, None, 1] + MAZE_OFFSET + offs[None, :, 1]
+    idx = (py[None] * array_dim[:, :, None] + px[None]).clamp(0, adim_max * adim_max - 1)
+    ok = (cells[None, :, 0] < maze_dim[:, None]) & (cells[None, :, 1] < maze_dim[:, None])
+
+    draws, ctx = rng.draw_block(g, rng.N)
+    cursor = torch.zeros((n,), dtype=i32, device=dev)
+    for k in range(cells.shape[0]):
+        v = work.gather(1, idx[:, k])  # [N, 5]
+        nb = v[:, 1:]
+        wall = nb == WALL_OBJ
+        n_wall = wall.sum(dim=1, dtype=i32)
+        fix = (ok[:, k] & (v[:, 0] == SPACE) & ((nb == SPACE).sum(dim=1) == 1)
+               & (n_wall > 0))
+        word = draws.gather(1, cursor.clamp(0, rng.N - 1).long()[:, None])[:, 0]
+        r = rng._randn_from(word, n_wall.clamp_min(1))
+        cursor = cursor + fix.to(i32)
+        sel = first_true(wall & (torch.cumsum(wall.to(i32), dim=1) - 1 == r[:, None]))
+        tgt = idx[:, k, 1:].gather(1, sel[:, None])
+        old = work.gather(1, tgt)
+        work.scatter_(1, tgt, torch.where(fix[:, None], SPACE, old))
+    grid = torch.where(interior, work, grid).to(i32)
+    return rng.advance_block(g, ctx, cursor), grid, free_cells, num_free, in_free

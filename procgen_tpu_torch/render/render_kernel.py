@@ -175,6 +175,16 @@ def get_plan(game, res: int = RES) -> RenderPlan:
 MAX_CANVASES = 4
 
 
+def _known_cell_colors():
+    """The ``grid_cell_colors`` hooks the cell planes reproduce: the base
+    one and chaser's orbs (``pallas_kernel._known_cell_colors``,
+    :225-236)."""
+    from ..core.game import BasicAbstractGame
+    from ..games.chaser import Chaser
+
+    return (BasicAbstractGame.grid_cell_colors, Chaser.grid_cell_colors)
+
+
 def supports(game, res: int = RES) -> bool:
     """Games whose per-step frame this module reproduces: the JAX gate
     (procgen_tpu/render/pallas_kernel.py:204-215) restricted to the ported
@@ -186,7 +196,9 @@ def supports(game, res: int = RES) -> bool:
     each env's painted canvas under generated assets, cropped or tiled, z
     in (-1, 0, 1) in both pools, under the static camera or the
     agent-centred one (memory mode's centred window of ``visibility + 3``
-    cells among them).  Monochrome sprites are not ported."""
+    cells among them), colored cells drawn whole or, as chaser's orbs, on
+    a centred inset (``grid_cell_inset``).  Monochrome sprites are not
+    ported."""
     from ..core.game import BasicAbstractGame
 
     if res != RES or game.options.use_monochrome_assets:
@@ -197,8 +209,8 @@ def supports(game, res: int = RES) -> bool:
         if (game.PALLAS_BG != "scroll"
                 or type(game).paint_background is not Starpilot.paint_background):
             return False
-    if type(game).grid_cell_colors is not BasicAbstractGame.grid_cell_colors:
-        return False
+    if type(game).grid_cell_colors not in _known_cell_colors():
+        return False  # per-pixel cell patterns beyond the inset model
     z = tuple(game.ENT_Z_LEVELS)
     dz = tuple(game.DECOR_Z_LEVELS) if game.DECOR_CAP else ()
     if game.static_prefix:
@@ -1187,6 +1199,68 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
         dz_slots=(-1, 0, -1) if dcap else (-1, -1, -1), nzd=1 if dcap else 0,
         grid_opaque=grid_opaque, bg_mode=bg_mode,
     )
+
+
+ORB_INSET = float(np.float32(0.3))  # chaser's orbs (games/chaser.ORB_DIM)
+
+
+def synthetic_orb_inputs(n: int, NC: int, grid_atlas, bg_atlas, ent_atlas,
+                         grid_opaque: int, seed: int = 0):
+    """Made-up ``FrameInputs`` (CPU tensors) whose pixels fall on the edges
+    of colored cells drawn at chaser's orb inset (0.3 of a cell): the
+    static camera's view of ``NC`` cells, every cell valid and uncovered,
+    nine in ten at the inset; each env's offsets put one pixel column's
+    world x and one pixel row's world y a few ulps (-8 to 8) from a
+    cell's ``0.5 - 0.15`` or ``0.5 + 0.15``, where a one-ulp difference
+    in the pixel's coordinate decides whether it is drawn.  Built with
+    numpy from ``seed``."""
+    x = synthetic_frame_inputs(n, NC, 4, grid_atlas, bg_atlas, ent_atlas, grid_opaque,
+                               seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    f32_ = np.float32
+    sf = x.sf.numpy().copy()
+    vis = f32_(NC)
+    unit = f32_(RES) / vis
+    sf[:, SF_VIS], sf[:, SF_UNIT] = vis, unit
+    sf[:, SF_TOPY], sf[:, SF_LOWX] = NC, 0
+    half = f32_(ORB_INSET) / f32_(2)
+
+    def offset(sign):
+        # world = (pix + off) / unit at a pixel near cell k + 0.5 -+ half
+        pix = f32_(rng.randint(0, RES)) + f32_(0.5)
+        edge = f32_(rng.randint(0, NC)) + f32_(0.5) + f32_(rng.choice([-1, 1])) * half
+        off = f32_(edge * unit - pix) * f32_(sign)
+        ulps = rng.randint(-8, 9)
+        for _ in range(abs(ulps)):
+            off = np.nextafter(off, f32_(np.inf * ulps))
+        return off
+
+    sf[:, SF_XOFF] = [offset(1) for _ in range(n)]
+    # world y = vis - (pix - off) / unit
+    sf[:, SF_YOFF] = [offset(-1) for _ in range(n)]
+    cell5 = np.zeros((n, 5, NC, NC), np.float32)
+    cell5[:, :3] = rng.randint(0, 256, (n, 3, NC, NC))
+    cell5[:, 3] = 1.0
+    cell5[:, 4] = np.where(rng.rand(n, NC, NC) < 0.9, ORB_INSET, 2.0)
+    gtab = np.full((n, NC, NC), grid_opaque, np.int32)
+    return dataclasses.replace(x, sf=torch.as_tensor(sf), cell5=torch.as_tensor(cell5),
+                               gtab=torch.as_tensor(gtab))
+
+
+def orb_edge_pixels(x: FrameInputs, ulps: int = 8):
+    """[N, 64, 64] bool: the pixels inside the cell window whose cell is
+    drawn at an inset below 1 and whose ``|u - 0.5|`` or ``|v - 0.5|``
+    lies within ``ulps`` ulps of half the inset (``grid_lookup``'s world
+    coordinates)."""
+    wxs, wys, inside, crow, ccol, _, _ = grid_lookup(x)
+    nidx = torch.arange(x.sf.shape[0], device=x.sf.device)[:, None, None]
+    inset = x.cell5[:, 4][nidx, crow, ccol]
+    half = inset / 2
+    du = torch.abs(wxs - torch.floor(wxs) - 0.5)[:, None, :] - half
+    dv = torch.abs(wys - torch.floor(wys) - 0.5)[:, :, None] - half
+    tol = ulps * float(np.spacing(np.float32(0.5)))
+    near = (torch.abs(du) <= tol) | (torch.abs(dv) <= tol)
+    return inside & (inset < 1) & near
 
 
 def render_obs_batch(game, states, res: int = RES):

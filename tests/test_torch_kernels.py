@@ -19,6 +19,7 @@ from procgen_tpu_torch.core.options import GameOptions
 from procgen_tpu_torch.core import lifecycle
 from procgen_tpu_torch.core.constants import INT32_MAX
 from procgen_tpu_torch.games.bossfight import BARRIER, Bossfight
+from procgen_tpu_torch.games.chaser import Chaser
 from procgen_tpu_torch.games.climber import Climber
 from procgen_tpu_torch.games.coinrun import Coinrun
 from procgen_tpu_torch.games.dodgeball import LAVA_WALL, Dodgeball
@@ -929,3 +930,55 @@ def test_cuda_suffix_kernel_at_bossfights_caps():
         want = rk.render_suffix_reference(base, ent_f, ent_i, atlas, 2, decor)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def _orb_inputs(mode, n, dev="cpu"):
+    """``synthetic_orb_inputs`` in chaser's window of ``mode`` (11, 13 or 19
+    cells) with its atlases."""
+    plan = rk.get_plan(Chaser(GameOptions(distribution_mode=mode)))
+    return rk.synthetic_orb_inputs(n, plan.NC, plan.on("grid", dev), plan.on("bg", dev),
+                                   plan.atlas(dev), plan.grid_opaque, seed=31 + mode).to(dev)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_orb_edge_pixels_on_both_sides(mode):
+    """The orb-edge inputs put pixels within 8 ulps of the 0.3 inset's
+    edges, on both sides of them; the plain version draws a cell's color at
+    exactly the pixels whose ``|u - 0.5|`` and ``|v - 0.5|`` are below
+    half the inset, unless a slot paints over them."""
+    x = _orb_inputs(mode, 128)
+    edge = rk.orb_edge_pixels(x)
+    wxs, wys, inside, crow, ccol, _, _ = rk.grid_lookup(x)
+    nidx = torch.arange(128)[:, None, None]
+    cell = x.cell5.permute(0, 2, 3, 1)[nidx, crow, ccol]
+    half = cell[..., 4] / 2
+    u = (wxs - torch.floor(wxs))[:, None, :]
+    v = (wys - torch.floor(wys))[:, :, None]
+    drawn = inside & (torch.abs(u - 0.5) < half) & (torch.abs(v - 0.5) < half)
+    assert int((edge & drawn).sum()) > 100 and int((edge & ~drawn).sum()) > 100
+    out = rk.render_frame_reference(x)
+    x_bare = dataclasses.replace(x, si=x.si.clone())
+    x_bare.si[:, rk.SI_ENT_COUNT] = 0
+    bare = rk.render_frame_reference(x_bare)
+    shows = (bare.int() == cell[..., :3].int()).all(dim=-1)
+    assert bool(shows[drawn].all())
+    under = rk.render_frame_reference(dataclasses.replace(
+        x_bare, cell5=torch.cat([x.cell5[:, :3], torch.zeros_like(x.cell5[:, 3:])], 1)))
+    assert torch.equal(bare[~drawn], under[~drawn])
+    assert out.shape == bare.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_cuda_frame_kernel_orb_inset_edges(mode):
+    """``render_frame`` on pixels a few ulps from the edges of chaser's orb
+    cells (inset 0.3) in its 11-, 13- and 19-cell windows, byte-equal to
+    its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = _orb_inputs(mode, 512, torch.device("cuda"))
+    assert bool(rk.orb_edge_pixels(x).any())
+    got = rk.render_frame(x)
+    want = rk.render_frame_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -37,7 +37,10 @@ reflection angle in f64, modes 0 and 2 their headings' C++ constants and
 the shield its height ``1.2 * boss ry`` in f64, and the boss's course and
 the barriers' rows pass ``jax.lax.optimization_barrier`` where XLA would
 fold a chain of constants or turn a division by 20 into a multiply;
-nothing else of the package changes.  XLA's f64 ``pow``,
+ninja's throwing star stops when a wall blocks it, both velocities zero,
+as the C++ ``is_blocked`` makes it (``Ninja._sub_step_rec``, where the
+package keeps the unblocked axis moving: the bytes hold stars stopped
+flush against walls); nothing else of the package changes.  XLA's f64 ``pow``,
 ``sin`` and ``cos`` on the CPU are glibc's (``test_patched_f64_is_glibc``).
 
 Tolerance: zero.
@@ -62,7 +65,8 @@ from procgen_tpu_torch import ProcgenGym3Env  # noqa: E402
 from procgen_tpu_torch.bridge import state_from_numpy  # noqa: E402
 
 GAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder",
-         "leaper", "bigfish", "dodgeball", "bossfight", "climber"]
+         "leaper", "bigfish", "dodgeball", "bossfight", "climber", "ninja",
+         "chaser"]
 # the fields the C++ bytes do not carry
 NOT_IN_BYTES = {"frame", "bg_canvas", "total_reward", "step_draws",
                 "reset_count"}
@@ -197,15 +201,33 @@ def _decay_agent_velocity(self, s):
         0, vx=CPP_F64["decay"](e.vx[0]), vy=CPP_F64["decay"](e.vy[0])))
 
 
+def _ninja_sub_step_rec(self, s, rec, vx, vy, depth, is_agent):
+    """Ninja's micro-move as the C++ runs it: a throwing star that a wall
+    blocks stops, both velocities zeroed inside ``is_blocked``
+    (ninja.cpp:139-152), after the move has snapped it to the wall."""
+    from procgen_tpu.core.game import BasicAbstractGame
+    from procgen_tpu.games.ninja import THROWING_STAR
+
+    s, rec, blocked = BasicAbstractGame._sub_step_rec(self, s, rec, vx, vy, depth,
+                                                      is_agent)
+    stop = blocked & (rec["type"] == THROWING_STAR)
+    rec = dict(rec, vx=jnp.where(stop, 0.0, rec["vx"]),
+               vy=jnp.where(stop, 0.0, rec["vy"]))
+    return s, rec, blocked
+
+
 def patch_jax_cpp_arithmetic():
     """Hold the JAX package, in this process, to the C++ arithmetic of the
-    expressions in ``CPP_F64`` (the module docstring).  Call it in a JAX
-    child process before anything is traced, never in the test process:
-    the other test files hold the package as it is."""
+    expressions in ``CPP_F64`` (the module docstring) and to the C++'s
+    stop of a blocked throwing star in ninja.  Call it in a JAX child
+    process before anything is traced, never in the test process: the
+    other test files hold the package as it is."""
     import procgen_tpu.games.dodgeball as jdodgeball
+    import procgen_tpu.games.ninja as jninja
     from procgen_tpu.core.game import BasicAbstractGame
 
     BasicAbstractGame.decay_agent_velocity = _decay_agent_velocity
+    jninja.Ninja._sub_step_rec = _ninja_sub_step_rec
     jdodgeball.BALL_V_ROT = CPP_F32["ball_vrot"]
     for (cls, meth), fn in _patched_methods().items():
         setattr(cls, meth, fn)
