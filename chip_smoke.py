@@ -13,8 +13,7 @@ the process exits non-zero):
               torch version, byte for byte, on the prep of 4096 maze states
               after 20 random steps and on a made-up batch; the slice
               ``entry.make_env_fns(4096, "maze", device="cuda")``: 20
-              warm-up and 100 timed steps (maze to dodgeball; bossfight,
-              climber, ninja and chaser run 50 + 150), one
+              warm-up and 100 timed steps (every slice), one
               ``render_suffix`` launch a step, env-steps/s, a per-layer
               split, the kernel's time
               against the plain version's and its bound; a 64-env
@@ -59,8 +58,8 @@ the process exits non-zero):
               double expressions of a draw, card against CPU at every
               distinct ``rand01`` value: bigfish's fish radius (f64
               ``pow``) and starpilot's spawner velocities (f64 ``sin``
-              and ``cos`` times each speed);
-              ``render_frame`` with the time-scrolled
+              and ``cos`` times each speed), the CPU half computed by
+              the CPU worker beforehand; ``render_frame`` with the time-scrolled
               background against its plain version, byte for byte, on the
               prep of 4096 starpilot-easy states after 20 random steps
               under both cameras, of 4096 hard and 4096 extreme states and
@@ -120,8 +119,7 @@ the process exits non-zero):
               pools a game has (72 entity slots, 160 laser trails and
               explosions: 69,104 B of dynamic shared memory a block; the
               enemy bullets and their trails on the rotation banks): the
-              slice ``make_env_fns(4096, "bossfight", device="cuda")``, 50
-              warm-up and 150 timed steps, one ``render_suffix`` launch a
+              slice ``make_env_fns(4096, "bossfight", device="cuda")``, one ``render_suffix`` launch a
               step; then the kernel against its plain version, byte for
               byte, on the prep of the slice's 4096 easy states, of 4096
               hard states after 30 steps, and on 4096 envs of edge-case
@@ -133,7 +131,7 @@ the process exits non-zero):
               included; the bossfight_easy recording replayed exactly on
               the card.
 13. climber — the slice ``make_env_fns(4096, "climber",
-              device="cuda")``, 50 warm-up and 150 timed steps, one
+              device="cuda")``, one
               ``render_frame`` launch a step; then ``render_frame`` under
               the game's own camera against its plain version, byte for
               byte, on the prep of the slice's 4096 easy states and of 4096
@@ -141,27 +139,25 @@ the process exits non-zero):
               (a 64-cell window) and the centred one (the world's width in
               view, a 19-cell window), and on 4096 envs of edge-case slots
               in the centred window; the kernel's time and bound under both
-              cameras on the slice's states; 50 timed steps of a 4096-env centred
+              cameras on the slice's states; 30 timed steps of a 4096-env centred
               ``ProcgenGym3Env``; a 64-env one for 50 steps on the card and
               on the CPU, bit-equal, every state leaf included; the
               climber_easy recording replayed exactly on the card.
 14. ninja   — the slice ``make_env_fns(4096, "ninja", device="cuda")``,
-              50 warm-up and 150 timed steps, one ``render_frame`` launch
-              a step (the throwing stars' grid dispatch on the path);
+              one ``render_frame`` launch a step (the throwing stars' grid dispatch on the path);
               then ``render_frame`` against its plain version, byte for
               byte, on the prep of the slice's 4096 easy states and of
               4096 hard states after 20 steps of jumps and throws, each
               under the whole-world camera (64 cells) and the centred one
               (13 and 19 cells), and on 4096 envs of edge-case slots in
               the centred window; the kernel's time and bound under both
-              cameras and the instances' occupancy; 50 timed steps of a
+              cameras and the instances' occupancy; 30 timed steps of a
               4096-env centred ``ProcgenGym3Env``; a 64-env one for 50
               steps on the card and on the CPU, bit-equal, every state
               leaf included; the ninja_easy recording replayed exactly on
               the card.
 15. chaser  — the slice ``make_env_fns(4096, "chaser", device="cuda")``,
-              50 warm-up and 150 timed steps, one ``render_frame`` launch
-              a step; then ``render_frame`` against its plain version,
+              one ``render_frame`` launch a step; then ``render_frame`` against its plain version,
               byte for byte, on the prep of the slice's 4096 easy states
               and of 4096 hard and extreme states after 20 steps (windows
               of 11, 13 and 19 cells, the orbs drawn at an inset of 0.3),
@@ -172,7 +168,34 @@ the process exits non-zero):
               bit-equal, every state leaf included; the chaser_easy
               recording replayed exactly on the card.  The game forces
               the static camera: no centred gym3 run.
-16. memory  — memory mode's centred whole frame: ``render_frame`` on the
+16. heist   — the slice ``make_env_fns(4096, "heist", device="cuda")``,
+              one ``render_frame`` launch a step; then ``render_frame``
+              against its plain version, byte for byte, on the prep of
+              the slice's 4096 easy states and of 4096 hard and 4096
+              memory states after 20 steps (windows of 9, 13 and, centred,
+              11 cells), each as they are and with every key held (the
+              key ring in screen coordinates at render_z 1) and the agent
+              in its 8 facings (rotation banks), and on 4096 envs of
+              edge-case slots in the centred window; the kernel's time
+              and bound in each window; 30 timed steps of a 4096-env
+              memory-mode ``ProcgenGym3Env`` (the game centres only
+              there); a 64-env one for 50 steps on the card and on the
+              CPU, bit-equal, every state leaf included; the heist_easy
+              recording replayed exactly on the card.
+17. jumper  — the slice ``make_env_fns(4096, "jumper", device="cuda")``,
+              one ``render_frame`` launch a step (the compass and bar
+              drawn after it); then ``render_frame`` against its plain
+              version, byte for byte, on the prep of the slice's 4096
+              easy states and of 4096 hard and 4096 memory states after 20
+              steps, each under the whole-world camera (20, 40, 45 cells)
+              and the centred one (15, 19, 19), and on 4096 envs of
+              edge-case slots with both pools full (64 + 16) in easy's two
+              windows; the kernel's time and bound in each window; 30
+              timed steps of a 4096-env centred ``ProcgenGym3Env``; a
+              64-env one for 50 steps on the card and on the CPU,
+              bit-equal, every state leaf included; the jumper_easy
+              recording replayed exactly on the card.
+18. memory  — memory mode's centred whole frame: ``render_frame`` on the
               window of ``visibility + 3`` cells (11 for maze and miner, 19
               for dodgeball with both pools) against its plain version,
               byte for byte, on the prep of 4096 memory states of each
@@ -183,7 +206,7 @@ the process exits non-zero):
               included; the maze_memory recording replayed exactly on the
               card, its ``render_frame`` launches counted (memory mode has
               no timed slice).
-17. genassets — generated assets: the background painter
+19. genassets — generated assets: the background painter
               ``assetgen_bg`` against its plain version, byte for byte, on
               the draw blocks of 256 seeded streams and on a made-up block
               that takes the longest path, its time at 64 envs (a
@@ -196,7 +219,7 @@ the process exits non-zero):
               miner easy and starpilot easy (cropped), and its time on
               painted coinrun and fruitbot against the atlas background's
               on the same states; the 4096-env coinrun
-              ``ProcgenGym3Env(use_generated_assets=True)`` for 100 timed
+              ``ProcgenGym3Env(use_generated_assets=True)`` for 60 timed
               act + observe steps after 10, in alternating windows with the
               same env without generated assets, one ``render_frame``
               launch a step, the painter's launches counted (a replenish
@@ -206,11 +229,11 @@ the process exits non-zero):
               on the card and on the CPU for 50 steps, bit-equal, every
               state leaf included; the maze_genassets recording replayed
               exactly on the card.
-18. profile — 5 more steps of each slice under ``torch.profiler``:
+20. profile — 3 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-19. result  — each phase's wall seconds, a JSON line of the kernels
+21. result  — each phase's wall seconds, a JSON line of the kernels
               (``render_suffix``, ``render_frame`` and ``assetgen_bg``
               once for each path that launches them), the card line, and
               the last line ``{"ok": true, "device": {...}}``.
@@ -237,30 +260,26 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 NUM_ENVS = 4096
-# bossfight, climber, ninja and chaser run 50 warm-up and 150 timed steps,
-# and their centred gym3 envs 50 timed steps after 10: with eight slices at the
-# bench protocol's 100 + 300 and the gym3 envs at 100, the whole script
-# took 1,100.6 s on a host where maze takes 39.6 ms a step and 1,280 s,
-# past its 1,200 s limit, on one where it takes 52.6 ms
-WARM_STEPS = 50
-TIMED_STEPS = 150
-GYM_TIMED_STEPS = 50
-# the slices of maze to dodgeball run shallower, so that every game's
-# phase fits inside the same limit
-EARLY_WARM = 20
-EARLY_TIMED = 100
+# every slice runs 20 warm-up and 100 timed steps, and each centred gym3
+# env 30 timed steps after 10: with eight slices at the bench protocol's
+# 100 + 300 and the gym3 envs at 100, the whole script took 1,100.6 s on
+# a host where maze takes 39.6 ms a step and 1,280 s, past its 1,200 s
+# limit, on one where it takes 52.6 ms.  Over fewer timed steps a
+# slice's rate hangs on its few 64-env resets (heist's read from 27,798
+# to 58,172 env-steps/s over 50 steps on three H100 hosts)
+WARM_STEPS = 20
+TIMED_STEPS = 100
+GYM_TIMED_STEPS = 30
 # random steps before their kernel checks (the slices of maze to
 # dodgeball, and generated assets)
 PRE_STEPS = 20
-# the centred gym3 envs of coinrun, fruitbot and starpilot
-EARLY_GYM_TIMED = 30
-# the generated-assets gym3 env is timed over 100 steps, in alternating
+# the generated-assets gym3 env is timed over 60 steps, in alternating
 # windows with the env without generated assets
-GENASSETS_TIMED_STEPS = 100
+GENASSETS_TIMED_STEPS = 60
 # the split and the profile run fewer steps than the slices, to keep the
 # script inside its limit on a slow host
-PROFILE_STEPS = 5
-SPLIT_STEPS = 15
+PROFILE_STEPS = 3
+SPLIT_STEPS = 10
 # timed calls of a plain version, after one untimed, in each of its two
 # turns: up to 0.9 s a call (bossfight's 232 slots), and the readings of
 # a turn agree to 0.2%
@@ -520,15 +539,15 @@ def main(argv=()):
         stop_cpu_worker()
 
 
-# the phases after the build, in order: the thirteen slices, then memory
+# the phases after the build, in order: the fifteen slices, then memory
 # mode and generated assets
 PHASES = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
-          "bigfish", "dodgeball", "bossfight", "climber", "ninja", "chaser", "memory",
-          "genassets")
+          "bigfish", "dodgeball", "bossfight", "climber", "ninja", "chaser", "heist",
+          "jumper", "memory", "genassets")
 
 
 def run_phases(dev, card, np, torch, only=None):
-    """Phases 2 to 19 (with ``only``, the named phases of ``PHASES``; with
+    """Phases 2 to 21 (with ``only``, the named phases of ``PHASES``; with
     no arguments, all of them).  Prints each phase's wall seconds on a line
     before the kernels line."""
     from procgen_tpu_torch import kernels
@@ -548,15 +567,15 @@ def run_phases(dev, card, np, torch, only=None):
         "fruitbot": lambda: fruitbot_phase(dev, card, np, torch),
         "starpilot": lambda: starpilot_phase(dev, card, np, torch),
         "plunder": lambda: plunder_phase(dev, card, np, torch),
-        "leaper": lambda: entity_suffix_phase("leaper", (0, 1, 2), 31, dev, card, np,
-                                              torch, EARLY_WARM, EARLY_TIMED),
-        "bigfish": lambda: entity_suffix_phase("bigfish", (0, 1), 37, dev, card, np,
-                                               torch, EARLY_WARM, EARLY_TIMED),
+        "leaper": lambda: entity_suffix_phase("leaper", (0, 1, 2), 31, dev, card, np, torch),
+        "bigfish": lambda: entity_suffix_phase("bigfish", (0, 1), 37, dev, card, np, torch),
         "dodgeball": lambda: dodgeball_phase(dev, card, np, torch),
         "bossfight": lambda: bossfight_phase(dev, card, np, torch),
         "climber": lambda: climber_phase(dev, card, np, torch),
         "ninja": lambda: ninja_phase(dev, card, np, torch),
         "chaser": lambda: chaser_phase(dev, card, np, torch),
+        "heist": lambda: heist_phase(dev, card, np, torch),
+        "jumper": lambda: jumper_phase(dev, card, np, torch),
         "memory": lambda: [memory_phase(dev, card, np, torch)],
         "genassets": lambda: genassets_phase(dev, card, np, torch),
     }
@@ -573,13 +592,13 @@ def run_phases(dev, card, np, torch, only=None):
             runs.append((name, out[0]))
             rows.append(out[1])
 
-    # -- 16. profile: after every timed phase --------------------------------
+    # -- 20. profile: after every timed phase --------------------------------
     t0 = time.perf_counter()
     for name, run in runs:
         profile_slice(name, *run, np, torch)
     walls["profile"] = time.perf_counter() - t0
 
-    # -- 17. result ----------------------------------------------------------
+    # -- 21. result ----------------------------------------------------------
     log("walls", "phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + f"; total {time.perf_counter() - T_START:.1f}")
     print(json.dumps({"kernels": rows}))
@@ -604,7 +623,7 @@ def _game(name, mode):
 
 def run_slice(name, dev, card, np, torch, warm=WARM_STEPS, timed=TIMED_STEPS):
     """The main path of one game: ``make_env_fns(4096, name)``, ``warm``
-    warm-up and ``timed`` timed steps (50 and 150 unless given), launch
+    warm-up and ``timed`` timed steps (20 and 100 unless given), launch
     counts zeroed just before and read just after.  Returns (carry,
     launches, step, ms a timed step)."""
     from procgen_tpu_torch.entry import make_env_fns
@@ -695,17 +714,22 @@ def profile_slice(name, carry, step, wall_ms, np, torch):
 # say otherwise); 64 envs, 50 steps each
 GEN = {"use_generated_assets": True}
 MEMORY = {"distribution_mode": "memory"}
+# ``LIBM``: the CPU half of starpilot's libm check (``libm_outputs``)
+LIBM = ("libm", False, {})
 CPU_RUNS = (("maze", False, {}), ("miner", False, {}), ("coinrun", False, {}),
-            ("fruitbot", False, {}), ("starpilot", True, {}), ("plunder", True, {}),
+            ("fruitbot", False, {}), LIBM, ("starpilot", True, {}), ("plunder", True, {}),
             ("leaper", True, {}), ("bigfish", True, {}), ("dodgeball", True, {}),
             ("bossfight", True, {}), ("climber", True, {}), ("ninja", True, {}),
-            ("chaser", True, {}), ("maze", True, MEMORY), ("maze", True, GEN),
+            ("chaser", True, {}), ("heist", True, {}), ("jumper", True, {}),
+            ("maze", True, MEMORY), ("maze", True, GEN),
             ("coinrun", True, GEN))
 
 
 def run_phase(run):
     """The phase of ``PHASES`` that makes a run of ``CPU_RUNS``."""
     name, _, opts = run
+    if run == LIBM:
+        return "starpilot"
     if opts.get("distribution_mode") == "memory":
         return "memory"
     return "genassets" if opts.get("use_generated_assets") else name
@@ -744,7 +768,10 @@ def cpu_worker(queue, runs):
     torch.set_num_threads(CPU_THREADS)
     for i, (name, states, opts) in enumerate(runs):
         t0 = time.perf_counter()
-        run = gym_run(name, "cpu", states, opts, np)
+        if (name, states, opts) == LIBM:
+            run = [t.numpy() for t in libm_outputs("cpu", np, torch)]
+        else:
+            run = gym_run(name, "cpu", states, opts, np)
         queue.put((i, run, time.perf_counter() - t0))
 
 
@@ -788,18 +815,23 @@ def cpu_run(i):
     return run, secs, time.perf_counter() - t0
 
 
+def next_cpu_run(run):
+    """The index in the worker's runs of ``run``, the next one due."""
+    i = _CPU["next"]
+    runs = _CPU["runs"]
+    if i >= len(runs) or runs[i] != run:
+        raise AssertionError(f"card-against-CPU run {i} is {runs[i:i + 1]}, not {run}")
+    _CPU["next"] = i + 1
+    return i
+
+
 def gpu_matches_cpu(name, np, torch, states=False, **opts):
     """The next of the worker's ``CPU_RUNS`` (this game, these options) on
     the card, against the CPU worker's run of it: obs, rewards, firsts and
     every info field (latents included) equal at each of the
     ``CPU_STEPS`` steps; with ``states``, every leaf of the last states
     too."""
-    i = _CPU["next"]
-    runs = _CPU["runs"]
-    if i >= len(runs) or runs[i] != (name, states, opts):
-        raise AssertionError(f"card-against-CPU run {i} is {runs[i:i + 1]}, not "
-                             f"{(name, states, opts)}")
-    _CPU["next"] = i + 1
+    i = next_cpu_run((name, states, opts))
     gpu, keys, g_leaves = gym_run(name, "cuda", states, opts, np)
     (cpu, c_keys, c_leaves), secs, waited = cpu_run(i)
     if c_keys != keys or len(cpu) != len(gpu):
@@ -893,9 +925,8 @@ def maze_phase(dev, card, np, torch):
     del carry, obs
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("maze", dev, card, np, torch, EARLY_WARM,
-                                                EARLY_TIMED)
-    total = EARLY_WARM + EARLY_TIMED
+    carry, launches, step, wall_ms = run_slice("maze", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_suffix"] != total or launches["render_frame"] != 0:
         raise AssertionError(f"maze: launches {launches} in {total} steps")
 
@@ -1012,9 +1043,8 @@ def miner_phase(dev, card, np, torch):
         f"max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("miner", dev, card, np, torch, EARLY_WARM,
-                                                EARLY_TIMED)
-    total = EARLY_WARM + EARLY_TIMED
+    carry, launches, step, wall_ms = run_slice("miner", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"miner: launches {launches} in {total} steps")
 
@@ -1116,9 +1146,8 @@ def coinrun_phase(dev, card, np, torch):
     del x_hard
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("coinrun", dev, card, np, torch, EARLY_WARM,
-                                                EARLY_TIMED)
-    total = EARLY_WARM + EARLY_TIMED
+    carry, launches, step, wall_ms = run_slice("coinrun", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"coinrun: launches {launches} in {total} steps")
 
@@ -1140,7 +1169,7 @@ def coinrun_phase(dev, card, np, torch):
     del x, xc
 
     # the gym3 surface at full width: act + observe, the centred camera
-    gym_centred("coinrun", card, np, torch, EARLY_GYM_TIMED)
+    gym_centred("coinrun", card, np, torch)
 
     keys = gpu_matches_cpu("coinrun", np, torch)
     checked = replay_on_card("coinrun_easy")
@@ -1151,15 +1180,15 @@ def coinrun_phase(dev, card, np, torch):
                                              plain_ms, b_ms, b_by)
 
 
-def gym_centred(name, card, np, torch, timed=GYM_TIMED_STEPS):
+def gym_centred(name, card, np, torch, timed=GYM_TIMED_STEPS, mode="easy"):
     """The gym3 surface at full width, act + observe, the centred camera
-    (``ProcgenGym3Env``'s default): ``timed`` timed steps after 10
-    (``GYM_TIMED_STEPS`` unless given); returns the render_frame
-    launches in the timed steps."""
+    (``ProcgenGym3Env``'s default) in distribution mode ``mode``:
+    ``timed`` timed steps after 10 (``GYM_TIMED_STEPS`` unless given);
+    returns the render_frame launches in the timed steps."""
     from procgen_tpu_torch import ProcgenGym3Env
     from procgen_tpu_torch.render import render_kernel as rk
 
-    env = ProcgenGym3Env(num=NUM_ENVS, env_name=name, distribution_mode="easy",
+    env = ProcgenGym3Env(num=NUM_ENVS, env_name=name, distribution_mode=mode,
                          rand_seed=0, device="cuda")
     arng = np.random.RandomState(5)
     acts = arng.randint(0, 15, size=(10 + timed, NUM_ENVS)).astype(np.int32)
@@ -1176,7 +1205,7 @@ def gym_centred(name, card, np, torch, timed=GYM_TIMED_STEPS):
     n_gym = rk.LAUNCHES["render_frame"] - before
     if obs_["rgb"].shape != (NUM_ENVS, 64, 64, 3) or n_gym != timed:
         raise AssertionError(f"gym3 {name}: obs {obs_['rgb'].shape}, {n_gym} launches")
-    log(name, f"ProcgenGym3Env centred: {timed * NUM_ENVS / dt:.1f} "
+    log(name, f"ProcgenGym3Env centred ({mode}): {timed * NUM_ENVS / dt:.1f} "
         f"env-steps/s ({dt / timed * 1e3:.2f} ms per act+observe, "
         f"{NUM_ENVS} envs, {timed} timed steps after 10, obs copied to "
         f"the host) on {card}; {n_gym} render_frame launches")
@@ -1240,9 +1269,8 @@ def fruitbot_phase(dev, card, np, torch):
         f"max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("fruitbot", dev, card, np, torch, EARLY_WARM,
-                                                EARLY_TIMED)
-    total = EARLY_WARM + EARLY_TIMED
+    carry, launches, step, wall_ms = run_slice("fruitbot", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"fruitbot: launches {launches} in {total} steps")
 
@@ -1266,7 +1294,7 @@ def fruitbot_phase(dev, card, np, torch):
         f"world: {occupancy(rk.frame_occupancy(x))}")
     del x, xc, x_hard
 
-    gym_centred("fruitbot", card, np, torch, EARLY_GYM_TIMED)
+    gym_centred("fruitbot", card, np, torch)
     keys = gpu_matches_cpu("fruitbot", np, torch)
     checked = replay_on_card("fruitbot_easy")
     log("fruitbot", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, "
@@ -1276,10 +1304,14 @@ def fruitbot_phase(dev, card, np, torch):
                                              plain_ms, b_ms, b_by)
 
 
-def libm_check(dev, np, torch):
-    """``core/libm.py`` on the card against the same code on the CPU: the
-    trig of starpilot's step, bit for bit.  Returns the inputs' count."""
+def libm_outputs(device, np, torch):
+    """``core/libm.py`` and the C++ double expressions of a draw on
+    ``device``: the trig of starpilot's step on seeded inputs, bigfish's
+    fish radius and starpilot's spawner products at every distinct
+    rand01 value.  Returns the outputs, a flat list of tensors."""
     from procgen_tpu_torch.core import libm
+    from procgen_tpu_torch.games.bigfish import fish_radius
+    from tools.draw_domains import distinct_rand01, spawner_speeds
 
     rng = np.random.RandomState(11)
     n = 1 << 22
@@ -1293,28 +1325,38 @@ def libm_check(dev, np, torch):
     xs = np.concatenate([rng.uniform(-16, 16, n // 2), rng.uniform(-1, 1, n // 2)])
     cases = [(libm.sincosf, (reset,)), (libm.sincosf, (wide,)), (libm.sincosf, (large,)),
              (libm.atan2f, (ys.astype(np.float32), xs.astype(np.float32)))]
-    total = 0
-    # the C++ double expressions of a draw at every distinct rand01 value:
-    # bigfish's fish radius, starpilot's spawner products at every speed
-    from procgen_tpu_torch.games.bigfish import fish_radius
-    from tools.draw_domains import distinct_rand01, spawner_speeds
-
     r01 = distinct_rand01()
     theta = torch.unique(((r01.double() - 0.5) * (float(np.float32(np.pi)) / 2)).float())
     cases.append((fish_radius, (r01.numpy(),)))
     cases += [(libm.sincos_times, (theta.numpy(), np.full(theta.shape, v, np.float32)))
               for v in spawner_speeds()]
     del r01, theta
+    out = []
     for fn, args in cases:
-        cpu = fn(*(torch.from_numpy(a) for a in args))
-        gpu = fn(*(torch.from_numpy(a).to(dev) for a in args))
-        for c, g in zip(*(((t,) if torch.is_tensor(t) else t) for t in (cpu, gpu))):
-            differ = int((c.view(torch.int32) != g.cpu().view(torch.int32)).sum())
-            if differ or bool(torch.isnan(c).any()):
-                raise AssertionError(
-                    f"libm.{fn.__name__}: card and CPU differ on {differ} inputs "
-                    f"(or NaN for a finite input)")
-            total += c.numel()
+        got = fn(*(torch.from_numpy(a).to(device) for a in args))
+        out += list(got) if isinstance(got, tuple) else [got]
+    return out
+
+
+def libm_check(dev, np, torch):
+    """``libm_outputs`` on the card against the CPU worker's, bit for bit
+    and no NaN.  Returns the outputs' count."""
+    i = next_cpu_run(LIBM)
+    gpu = [g.cpu() for g in libm_outputs(dev, np, torch)]
+    cpu, secs, waited = cpu_run(i)
+    if len(cpu) != len(gpu):
+        raise AssertionError(f"libm: {len(gpu)} outputs on the card, {len(cpu)} on the CPU")
+    total = 0
+    for c, g in zip(cpu, gpu):
+        c = torch.from_numpy(c)
+        differ = int((c.view(torch.int32) != g.view(torch.int32)).sum()) \
+            if c.shape == g.shape and c.dtype == g.dtype else -1
+        if differ or bool(torch.isnan(c).any()):
+            raise AssertionError(f"libm: card and CPU differ on {differ} of {c.numel()} "
+                                 f"outputs (-1: shapes), or NaN for a finite input")
+        total += c.numel()
+    log("starpilot", f"libm check: the CPU worker's half took {secs:.1f} s, waited for "
+        f"{waited:.1f} s")
     return total
 
 
@@ -1384,9 +1426,8 @@ def starpilot_phase(dev, card, np, torch):
         f"max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("starpilot", dev, card, np, torch, EARLY_WARM,
-                                                EARLY_TIMED)
-    total = EARLY_WARM + EARLY_TIMED
+    carry, launches, step, wall_ms = run_slice("starpilot", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_frame"] != total or launches["render_suffix"] != 0:
         raise AssertionError(f"starpilot: launches {launches} in {total} steps")
 
@@ -1407,7 +1448,7 @@ def starpilot_phase(dev, card, np, torch):
         f"{occupancy(rk.frame_occupancy(x))}")
     del x, xc
 
-    gym_centred("starpilot", card, np, torch, EARLY_GYM_TIMED)
+    gym_centred("starpilot", card, np, torch)
     keys = gpu_matches_cpu("starpilot", np, torch, states=True)
     checked = replay_on_card("starpilot_easy")
     log("starpilot", f"64 envs x 50 steps, centred: GPU and CPU bit-equal (obs, "
@@ -1484,9 +1525,8 @@ def plunder_phase(dev, card, np, torch):
     del base, ent_f, ent_i, decor
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("plunder", dev, card, np, torch, EARLY_WARM,
-                                                EARLY_TIMED)
-    total = EARLY_WARM + EARLY_TIMED
+    carry, launches, step, wall_ms = run_slice("plunder", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_suffix"] != total or launches["render_frame"] != 0:
         raise AssertionError(f"plunder: launches {launches} in {total} steps")
 
@@ -1541,12 +1581,12 @@ def entity_suffix_phase(name, modes, edge_seed, dev, card, np, torch,
     nz = len(plan.z_levels)
     cap = plan.game.ENT_CAP
 
-    # kernel vs plain version: easy after the slice's warm-up steps of its
+    # kernel vs plain version: easy after PRE_STEPS steps of the slice's
     # program, the other modes after 20, edge-case slots at the cap
     init, step, seeds = make_env_fns(NUM_ENVS, name, device=dev)
     carry = init(seeds)
     rng = np.random.RandomState(1)
-    for _ in range(warm):
+    for _ in range(PRE_STEPS):
         acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
         carry, obs, rew, done = step(carry, acts)
     s = carry.states
@@ -1694,9 +1734,8 @@ def dodgeball_phase(dev, card, np, torch):
         f"y and bank rows; max_abs_err {err}")
 
     # the main path
-    carry, launches, step, wall_ms = run_slice("dodgeball", dev, card, np, torch, EARLY_WARM,
-                                                EARLY_TIMED)
-    total = EARLY_WARM + EARLY_TIMED
+    carry, launches, step, wall_ms = run_slice("dodgeball", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
     if launches["render_suffix"] != total or launches["render_frame"] != 0:
         raise AssertionError(f"dodgeball: launches {launches} in {total} steps")
 
@@ -2093,6 +2132,186 @@ def chaser_phase(dev, card, np, torch):
         f"firsts, {', '.join(keys)}); chaser_easy replay exact ({checked} steps)")
     _, kernel_ms, plain_ms, _, b_ms, b_by, _ = timed[0]
     return (carry, step, wall_ms), frame_row("chaser", launches, err, kernel_ms,
+                                             plain_ms, b_ms, b_by)
+
+
+def heist_phase(dev, card, np, torch):
+    """Heist: the whole-frame kernel under the static camera (9 and 13
+    cells) and memory mode's centred one (11 cells), the key ring's keys
+    the first slots in screen coordinates (render_z 1), the agent on the
+    rotation banks.  The slice first; then ``render_frame`` against its
+    plain version on the prep of the slice's 4096 easy states and of 4096
+    hard and 4096 memory states after 20 steps, each as they are and with
+    every key held (the ring showing) and the agent turned to its 8
+    facings, and on 4096 envs of edge-case slots in the centred window;
+    the kernel's time and bound in each window and the instances'
+    occupancy; memory mode's centred ``ProcgenGym3Env``; card against CPU;
+    the easy recording.  Returns ((carry, step, ms a step), the kernels
+    line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core import rng as trng
+    from procgen_tpu_torch.core.constants import MEMORY_MODE
+    from procgen_tpu_torch.games.heist import KEY_ON_RING, with_ring_and_facings
+    from procgen_tpu_torch.levelgen import maze as mazegen
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("heist", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"heist: launches {launches} in {total} steps")
+
+    # the maze with doors of a 64-env easy reset: its BFS rounds (each a
+    # host read) and torch operations
+    rs = np.random.RandomState(67)
+    stats = {}
+    g = trng.seed(torch.as_tensor(rs.randint(0, 2**31, RESET_CHUNK), device=dev))
+    ops = torch_ops(lambda: mazegen.generate_maze_with_doors(
+        g, torch.as_tensor(rs.randint(0, 3, RESET_CHUNK) * 2 + 5, dtype=torch.int32,
+                           device=dev), 9,
+        torch.as_tensor(rs.randint(0, 4, RESET_CHUNK), dtype=torch.int32, device=dev), stats))
+    log("heist", f"maze with doors of {RESET_CHUNK} easy envs: {stats['rounds']} BFS rounds, "
+        f"{ops} torch operations")
+
+    # kernel vs plain version in each mode's window: the slice's easy
+    # states, hard and memory states after 20 steps; each again with every
+    # key held and the agent in facing (env mod 8)
+    seeds = torch.as_tensor(np.random.RandomState(67).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    rng = np.random.RandomState(1)
+    err, timed, occ, rings = 0, {}, {}, {}
+    for mode in (0, 1, MEMORY_MODE):
+        game = _game("heist", mode)
+        plan = rk.get_plan(game)
+        if mode == 0:
+            st = carry.states
+        else:
+            st = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+            for _ in range(20):
+                acts = torch.as_tensor(rng.randint(0, 15, size=NUM_ENVS), device=dev)
+                st, _ = lifecycle.env_step(game, st, acts)
+        held = with_ring_and_facings(st)
+        rings[mode] = int((held.ents.active & (held.ents.type == KEY_ON_RING)).sum())
+        want_nc = 11 if mode == MEMORY_MODE else game.world_dim
+        for what, s_ in (("states", st), ("states, every key held, 8 facings", held)):
+            x = rk.prep_frame(plan, s_)
+            if plan.static or x.gtab.shape[1] != want_nc:
+                raise AssertionError(f"heist mode {mode}: window of {x.gtab.shape[1]} cells")
+            err = max(err, frame_check(x, f"heist mode {mode} {what} (NC {want_nc})", rk,
+                                       torch))
+        x = rk.prep_frame(plan, st)
+        timed[mode] = (want_nc, *time_frame(x, rk), *frame_bound(x, rk, torch))
+        occ[mode] = occupancy(rk.frame_occupancy(x))
+        if mode > 0:
+            del st
+        del x, held
+    mplan = rk.get_plan(_game("heist", MEMORY_MODE))
+    err = max(err, edge_frame_check(mplan, mplan.game.ENT_CAP, 0, 67, rk, torch))
+    log("heist", f"render_frame byte-equal: {NUM_ENVS} states of each mode (0: the "
+        f"slice's, 1 and 10: after 20 steps), each also with every key held and the agent "
+        f"in its 8 facings (ring keys shown by mode: {rings}), {NUM_ENVS} envs of "
+        f"edge-case slots in the centred 11-cell window (cap {mplan.game.ENT_CAP}); "
+        f"max_abs_err {err}")
+    for mode, (NC, k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
+        log("heist", f"render_frame (mode {mode}, NC {NC}) at N={NUM_ENVS}: kernel "
+            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel, plain: "
+            f"{readings}), bound {b_ms:.4f} ms ({b_by}; {work}), the kernel at "
+            f"{100 * b_ms / k_ms:.1f}% of it, on {card}; <BG_CROP> instance: {occ[mode]}")
+
+    gym_centred("heist", card, np, torch, mode="memory")
+    keys = gpu_matches_cpu("heist", np, torch, states=True)
+    checked = replay_on_card("heist_easy")
+    log("heist", f"64 envs x {CPU_STEPS} steps: GPU and CPU bit-equal (obs, rewards, "
+        f"firsts, {', '.join(keys)}); heist_easy replay exact ({checked} steps)")
+    _, kernel_ms, plain_ms, _, b_ms, b_by, _ = timed[0]
+    return (carry, step, wall_ms), frame_row("heist", launches, err, kernel_ms,
+                                             plain_ms, b_ms, b_by)
+
+
+def jumper_phase(dev, card, np, torch):
+    """Jumper: the whole-frame kernel over the whole world (20, 40 and 45
+    cells) and under the agent-centred camera (15 and 19 cells), 64 entity
+    slots beside the 16 trails of the decor pool (alpha 0.5), the compass
+    and distance bar drawn after the kernel (``renderer.post``).  The
+    slice first; then ``render_frame`` against its plain version on the
+    prep of the slice's 4096 easy states and of 4096 hard and 4096 memory
+    states after 20 steps, each under both cameras, and on 4096 envs of
+    edge-case slots with both pools full in the centred and whole-world
+    easy windows; the kernel's time and bound in each window and the
+    instances' occupancy; the centred ``ProcgenGym3Env``; card against
+    CPU; the easy recording.  Returns ((carry, step, ms a step), the
+    kernels line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core.constants import INT32_MAX, MEMORY_MODE
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.games.jumper import Jumper
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    def game_of(mode, centred):
+        game = Jumper(GameOptions(distribution_mode=mode, center_agent=centred))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        return game
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("jumper", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"jumper: launches {launches} in {total} steps")
+
+    # kernel vs plain version under both cameras: the slice's easy states,
+    # hard and memory states after 20 steps
+    seeds = torch.as_tensor(np.random.RandomState(71).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    rng = np.random.RandomState(1)
+    err, timed, occ, trails = 0, {}, {}, {}
+    for mode in (0, 1, MEMORY_MODE):
+        if mode == 0:
+            st = carry.states
+        else:
+            game = game_of(mode, False)
+            st = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+            for _ in range(20):
+                acts = torch.as_tensor(rng.choice([2, 5, 8, 8, 6, 0, 3], size=NUM_ENVS),
+                                       device=dev)
+                st, _ = lifecycle.env_step(game, st, acts)
+        trails[mode] = int(st.decor.count.sum())
+        for centred in (False, True):
+            game = game_of(mode, centred)
+            plan = rk.get_plan(game)
+            want_nc = int(game.visibility) + 3 if centred else game.world_dim
+            x = rk.prep_frame(plan, st)
+            if plan.static or x.gtab.shape[1] != want_nc:
+                raise AssertionError(f"jumper mode {mode}: window of {x.gtab.shape[1]} cells")
+            err = max(err, frame_check(x, f"jumper mode {mode} states (NC {want_nc})", rk,
+                                       torch))
+            timed[(mode, want_nc)] = (*time_frame(x, rk), *frame_bound(x, rk, torch))
+            occ[(mode, want_nc)] = occupancy(rk.frame_occupancy(x))
+            del x
+        if mode > 0:
+            del st
+    for centred in (False, True):
+        plan = rk.get_plan(game_of(0, centred))
+        err = max(err, edge_frame_check(plan, plan.game.ENT_CAP, plan.game.DECOR_CAP,
+                                        71 + centred, rk, torch))
+    log("jumper", f"render_frame byte-equal: {NUM_ENVS} states of each mode (0: the "
+        f"slice's, 1 and 10: after 20 steps; live trails by mode: {trails}) under the "
+        f"whole-world camera and the centred one (windows by (mode, NC): {list(timed)}), "
+        f"{NUM_ENVS} envs of edge-case slots with both pools full (caps 64 + 16) in the "
+        f"easy windows (20 and 15 cells); max_abs_err {err}")
+    for (mode, NC), (k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
+        log("jumper", f"render_frame (mode {mode}, NC {NC}) at N={NUM_ENVS}: kernel "
+            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel, plain: "
+            f"{readings}), bound {b_ms:.4f} ms ({b_by}; {work}), the kernel at "
+            f"{100 * b_ms / k_ms:.1f}% of it, on {card}; <BG_CROP> instance: "
+            f"{occ[(mode, NC)]}")
+
+    gym_centred("jumper", card, np, torch)
+    keys = gpu_matches_cpu("jumper", np, torch, states=True)
+    checked = replay_on_card("jumper_easy")
+    log("jumper", f"64 envs x {CPU_STEPS} steps: GPU and CPU bit-equal (obs, rewards, "
+        f"firsts, {', '.join(keys)}); jumper_easy replay exact ({checked} steps)")
+    kernel_ms, plain_ms, _, b_ms, b_by, _ = timed[(0, 20)]
+    return (carry, step, wall_ms), frame_row("jumper", launches, err, kernel_ms,
                                              plain_ms, b_ms, b_by)
 
 

@@ -3,8 +3,8 @@
 Games self-register via ``@register(name)``; ``make_game(name, options)``
 replaces ``globalGameRegistry->at(name)()``.  The port carries maze,
 miner, coinrun, fruitbot, starpilot, plunder, leaper, bigfish, dodgeball,
-bossfight, climber, ninja and chaser so far; the other games are queued
-in ROADMAP.md.
+bossfight, climber, ninja, chaser, heist and jumper so far; caveflyer is
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ _REGISTRY: dict[str, type] = {}
 # modules that register games on import (grown as games are ported)
 _GAME_MODULES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder",
                  "leaper", "bigfish", "dodgeball", "bossfight", "climber", "ninja",
-                 "chaser"]
+                 "chaser", "heist", "jumper"]
 
 
 def register(name: str):

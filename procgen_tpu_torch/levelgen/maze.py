@@ -250,3 +250,164 @@ def generate_maze_no_dead_ends(g: rng.MTState, maze_dim: torch.Tensor, mdim_max:
         work.scatter_(1, tgt, torch.where(fix[:, None], SPACE, old))
     grid = torch.where(interior, work, grid).to(i32)
     return rng.advance_block(g, ctx, cursor), grid, free_cells, num_free, in_free
+
+
+def _neighbour_index(n: int, A: int, shift, dev) -> torch.Tensor:
+    """Gather indices [N, A] of ``jnp.roll(m, shift)`` along a flat axis
+    of length ``A``: ``roll(m, k)[i] = m[(i - k) mod A]``, ``shift`` an
+    int or int [N]."""
+    shift = torch.as_tensor(shift, device=dev).reshape(-1, 1).long()
+    return torch.remainder(torch.arange(A, device=dev)[None, :] - shift, A).expand(n, A)
+
+
+def _flat_neighbours(n: int, A: int, array_dim: torch.Tensor):
+    """The gather indices of the four flat-buffer neighbours, in the order
+    left, up, down, right: rolls by 1, ``array_dim``, ``-array_dim`` and
+    -1 over the buffer's length, wrapping as ``jnp.roll`` wraps (the
+    interior mask keeps a wrapped neighbour from counting)."""
+    dev = array_dim.device
+    return [_neighbour_index(n, A, k, dev) for k in (1, array_dim, -array_dim, -1)]
+
+
+def _any_neighbour(m: torch.Tensor, nbrs) -> torch.Tensor:
+    out = torch.zeros_like(m)
+    for idx in nbrs:
+        out = out | m.gather(1, idx)
+    return out
+
+
+def _expand_to_type(grid, s0, s1, target_type: int, interior, array_dim, nbrs, do):
+    """mazegen.cpp:72-101 (JAX: procgen_tpu/levelgen/maze.py:191-253),
+    batched: a BFS from ``s0`` over the maze's SPACE, accumulating ``s1``, that
+    stops at the first frontier cell (ascending) with a neighbour of
+    ``target_type``; the frontier cells after that one add no neighbours.
+    Each env runs its own number of rounds; the loop runs while any env
+    has not stopped (one host read a round), a stopped env's frontier
+    empty, so that its rounds change nothing.  Returns (s1, found,
+    rounds): ``found`` the hit cell's first target neighbour in the order
+    left, up, down, right, or -1."""
+    n, A = grid.shape
+    dev = grid.device
+    tmask = (grid == target_type) & interior
+    has_t = _any_neighbour(tmask, nbrs)
+    free = (grid == SPACE) & interior & ~s0
+    do = torch.as_tensor(do, device=dev).expand(n)
+    curr = s0 & do[:, None]
+    stop = ~do
+    hits = torch.zeros_like(curr)  # the frontier's hits in the round an env stopped on one
+    rounds = 0
+    while not bool(stop.all()):
+        rounds += 1
+        hit = curr & has_t
+        any_hit = hit.any(dim=1)
+        # the frontier up to its first hit
+        processed = curr & (torch.cumsum(hit, dim=1) - hit.to(torch.int64) == 0)
+        newly = _any_neighbour(processed, nbrs) & free & ~s1
+        s1 = s1 | newly
+        hits = torch.where(any_hit[:, None], hit, hits)
+        stop = stop | any_hit | ~newly.any(dim=1)
+        curr = newly & ~stop[:, None]
+    ad = array_dim[:, None].long()
+    f = first_true(hits)[:, None]
+    nb = torch.cat([f - 1, f - ad, f + ad, f + 1], dim=1).clamp(0, A - 1)
+    found = nb.gather(1, first_true(tmask.gather(1, nb))[:, None])[:, 0].to(i32)
+    return s1, torch.where(hits.any(dim=1), found, -1), rounds
+
+
+def generate_maze_with_doors(g: rng.MTState, maze_dim: torch.Tensor, mdim_max: int,
+                             num_doors: torch.Tensor, stats: dict = None):
+    """mazegen.cpp:213-290 (JAX: procgen_tpu/levelgen/maze.py:256-365),
+    batched over envs: a Kruskal maze; ``num_doors`` doors at forks
+    (``choose_n``, which draws nothing when the forks are fewer: then all
+    become doors); the agent on a SPACE cell with no door beside it, by
+    rejection (masked rounds, one host read each); then for each door the
+    BFS ``_expand_to_type`` colours the door it reaches, and a key of
+    that colour goes on a random cell of the region it covered; the exit
+    last.  ``maze_dim`` and ``num_doors`` are int32 [N].  Returns (g,
+    grid, actual_num_doors), the grid flat with stride ``maze_dim + 2``;
+    with ``stats``, the BFS rounds run are added to ``stats["rounds"]``."""
+    from ..core.constants import AGENT_OBJ, DOOR_OBJ, EXIT_OBJ, KEY_OBJ
+
+    g, grid, _, _, _ = generate_maze(g, maze_dim, mdim_max)
+    n, A = grid.shape
+    dev = grid.device
+    array_dim = maze_dim + 2
+    idxs = torch.arange(A, device=dev)[None, :]
+    ad = array_dim[:, None]
+    x = torch.remainder(idxs, ad)
+    y = torch.div(idxs, ad, rounding_mode="floor")
+    interior = (x > 0) & (x < ad - 1) & (y > 0) & (y < ad - 1) & (idxs < ad * ad)
+    nbrs = _flat_neighbours(n, A, array_dim)
+
+    def nb_count(m):
+        return sum(m.gather(1, idx).to(i32) for idx in nbrs)
+
+    def pick(m, r):
+        """The ``r``-th (per env) True cell of ``m``, ascending."""
+        ranks = torch.cumsum(m.to(i32), dim=1) - 1
+        return first_true(m & (ranks == r[:, None]))
+
+    space = (grid == SPACE) & interior
+    forks = space & (nb_count(space) > 2)
+    fsize = forks.sum(dim=1, dtype=i32)
+
+    # choose_n(forks, num_doors) (randgen.cpp:49-68)
+    take_all = num_doors > fsize
+    alive = forks.clone()
+    chosen = torch.zeros_like(forks)
+    for j in range(3):
+        do = ~take_all & (j < num_doors)
+        cnt = alive.sum(dim=1, dtype=i32)
+        g2, r = rng.randn(g, cnt.clamp_min(1))
+        g = rng._sel(do, g2, g)
+        p = pick(alive, r)
+        _put(chosen, p, torch.ones_like(do), do)
+        _put(alive, p, torch.zeros_like(do), do)
+    chosen = torch.where(take_all[:, None], forks, chosen)
+    actual_doors = torch.where(take_all, fsize, num_doors).to(i32)
+    grid = torch.where(chosen, DOOR_OBJ, grid).to(i32)
+
+    # the agent cell: a random SPACE cell with no door beside it (cpp:245-258)
+    space2 = (grid == SPACE) & interior
+    cnt2 = space2.sum(dim=1, dtype=i32).clamp_min(1)
+    door_adj = nb_count((grid == DOOR_OBJ) & interior) > 0
+    g, r = rng.randn(g, cnt2)
+    cell = pick(space2, r)
+    while True:
+        need = _take(door_adj, cell)
+        if not bool(need.any()):
+            break
+        g2, r = rng.randn(g, cnt2)
+        g = rng._sel(need, g2, g)
+        cell = torch.where(need, pick(space2, r), cell)
+    ones = torch.ones((n,), dtype=torch.bool, device=dev)
+    _put(grid, cell, torch.full_like(cell, AGENT_OBJ), ones)
+
+    # each door's region, its colour and key; the exit last
+    s0 = torch.zeros((n, A), dtype=torch.bool, device=dev)
+    _put(s0, cell, ones, ones)
+    rounds = 0
+    for door_num in range(4):  # at most 3 doors, then the exit's round
+        it_on = door_num < actual_doors + 1
+        do_door = door_num < actual_doors
+        s1 = torch.zeros_like(s0)
+        s1, found, k = _expand_to_type(grid, s0, s1, DOOR_OBJ, interior, array_dim, nbrs,
+                                       do_door)
+        rounds += k
+        ok_found = do_door & (found >= 0)
+        fcell = found.clamp_min(0)
+        _put(grid, fcell, torch.full_like(fcell, DOOR_OBJ + door_num + 1), ok_found)
+        s0 = s0 | (s1 & do_door[:, None])
+
+        s1, _, k = _expand_to_type(grid, s0, s1, -999, interior, array_dim, nbrs, it_on)
+        rounds += k
+        g2, r1 = rng.randn(g, s1.sum(dim=1, dtype=i32).clamp_min(1))
+        g = rng._sel(it_on, g2, g)
+        key_cell = pick(s1, r1)
+        val = torch.where(door_num == actual_doors, EXIT_OBJ, KEY_OBJ + door_num + 1)
+        _put(grid, key_cell, val, it_on)
+        s0 = s0 | (s1 & it_on[:, None])
+        _put(s0, fcell, torch.ones_like(ok_found), ok_found)
+    if stats is not None:
+        stats["rounds"] = stats.get("rounds", 0) + rounds
+    return g, grid, actual_doors

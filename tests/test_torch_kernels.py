@@ -982,3 +982,68 @@ def test_cuda_frame_kernel_orb_inset_edges(mode):
     want = rk.render_frame_reference(x)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _heist_ring_states(n, dev="cpu"):
+    """``n`` heist memory-mode states (the centred 11-cell window) with
+    every key held, so that each env's key ring (up to 3 keys in screen
+    coordinates at render_z 1) shows, env i's agent in facing i mod 8."""
+    from procgen_tpu_torch.core.constants import MEMORY_MODE
+    from procgen_tpu_torch.games.heist import Heist, with_ring_and_facings
+
+    game = Heist(GameOptions(distribution_mode=MEMORY_MODE))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    seeds = torch.arange(n, dtype=torch.int64, device=dev) * 104729 + 3
+    s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+    return game, with_ring_and_facings(s)
+
+
+def test_screen_slots_hold_still_over_a_centred_window():
+    """Heist's key ring in memory mode's centred window, on the plain
+    version: the ring's slots take screen coordinates (64 px a unit) at
+    render_z 1, the same whatever the camera; moving the agent (and the
+    window) moves every world slot and no ring slot; the ring changes the
+    frame in its rectangles only."""
+    from procgen_tpu_torch.games.heist import KEY_ON_RING
+
+    game, s = _heist_ring_states(16)
+    plan = rk.get_plan(game)
+    assert game.center_agent and plan.NC == 11 and rk.supports(game)
+    x = rk.prep_frame(plan, s)
+    ring = s.ents.active & (s.ents.type == KEY_ON_RING)
+    assert int(ring.sum()) >= 8
+    assert bool((x.ent_i[..., rk.EI_Z][ring] == plan.z_slots[2]).all())
+    assert bool((x.ent_i[..., rk.EI_LIVE][ring] == 1).all())
+    e = s.ents
+    np.testing.assert_array_equal(x.ent_f[..., rk.EF_X0][ring], (64 * (e.x - e.rx))[ring])
+    moved = s.replace(ents=s.ents.set_fields(0, x=s.ents.x[:, 0] + 1.5,
+                                             y=s.ents.y[:, 0] - 2.25))
+    xm = rk.prep_frame(plan, moved)
+    world = s.ents.active & ~ring & (torch.arange(s.ents.cap) > 0)
+    assert torch.equal(xm.ent_f[ring], x.ent_f[ring])
+    assert bool((xm.ent_f[..., rk.EF_X0][world] != x.ent_f[..., rk.EF_X0][world]).all())
+    frame = rk.render_frame_reference(x)
+    bare_i = x.ent_i.clone()
+    bare_i[..., rk.EI_LIVE] = torch.where(ring, 0, bare_i[..., rk.EI_LIVE])
+    bare = rk.render_frame_reference(dataclasses.replace(x, ent_i=bare_i))
+    diff = (frame != bare).any(-1)
+    covered = (_covers(x.ent_f, rk.EF_X0, rk.EF_W2)[..., None, :]
+               & _covers(x.ent_f, rk.EF_Y0, rk.EF_H2)[..., :, None]
+               & ring[..., None, None]).any(1)
+    assert bool(diff.any()) and not bool((diff & ~covered).any())
+
+
+@pytest.mark.cuda
+def test_cuda_frame_kernel_screen_slots_over_a_centred_window():
+    """``render_frame`` on heist memory states with the key ring showing
+    (screen-coordinate slots at render_z 1 over the centred 11-cell
+    window) and the agent in its 8 facings (rotation banks), byte-equal
+    to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    game, s = _heist_ring_states(256, torch.device("cuda"))
+    x = rk.prep_frame(rk.get_plan(game), s)
+    got = rk.render_frame(x)
+    want = rk.render_frame_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -23,8 +23,8 @@ from procgen_tpu_torch.conformance import replay
 HERE = os.path.dirname(os.path.abspath(__file__))
 REC_DIR = os.path.join(HERE, "data", "conformance_opts")
 
-FAST = ("coinrun_restrict", "coinrun_seq", "dodgeball_genassets", "leaper_seq",
-        "maze_genassets", "maze_nobg_vel", "maze_seq")
+FAST = ("coinrun_restrict", "coinrun_seq", "dodgeball_genassets", "heist_restrict",
+        "leaper_seq", "maze_genassets", "maze_nobg_vel", "maze_seq")
 SLOW = ("coinrun_pushchain", "dodgeball_volley", "plunder_volley")
 
 

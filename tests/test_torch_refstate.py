@@ -40,7 +40,9 @@ fold a chain of constants or turn a division by 20 into a multiply;
 ninja's throwing star stops when a wall blocks it, both velocities zero,
 as the C++ ``is_blocked`` makes it (``Ninja._sub_step_rec``, where the
 package keeps the unblocked axis moving: the bytes hold stars stopped
-flush against walls); nothing else of the package changes.  XLA's f64 ``pow``,
+flush against walls); heist's key ring takes its radius as the C++
+float (``CPP_F32["ring_key_r"]``; the keys' x and y are double
+expressions of it); nothing else of the package changes.  XLA's f64 ``pow``,
 ``sin`` and ``cos`` on the CPU are glibc's (``test_patched_f64_is_glibc``).
 
 Tolerance: zero.
@@ -66,7 +68,7 @@ from procgen_tpu_torch.bridge import state_from_numpy  # noqa: E402
 
 GAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder",
          "leaper", "bigfish", "dodgeball", "bossfight", "climber", "ninja",
-         "chaser"]
+         "chaser", "heist", "jumper"]
 # the fields the C++ bytes do not carry
 NOT_IN_BYTES = {"frame", "bg_canvas", "total_reward", "step_draws",
                 "reset_count"}
@@ -143,6 +145,10 @@ _PATCHES = {
         ("PLAYER_BULLET_VEL * jnp.sin(theta) * 0.5", "CPP_F64['sin'](theta, 0.5)"),
         ("PLAYER_BULLET_VEL * jnp.cos(theta) * 0.5", "CPP_F64['cos'](theta, 0.5)"),
     ],
+    ("procgen_tpu.games.heist", "Heist", "game_reset"): [
+        # the key ring's radius is a C++ float (heist.cpp:188-199)
+        ("ring_key_r = 0.03", "ring_key_r = CPP_F32['ring_key_r']"),
+    ],
     ("procgen_tpu.games.bossfight", "Bossfight", "game_reset"): [
         ("1.2 * BOSS_R, 1.2 * BOSS_R / boss_ar, SHIELDS",
          "1.2 * BOSS_R, CPP_F64['shield_ry'](BOSS_R / boss_ar), SHIELDS"),
@@ -170,6 +176,9 @@ CPP_F32 = {
                for i in range(5)],
     "bf_turn": [float(_F(_F(i) * _F(PI_F)) / _F(2)) for i in range(4)],
     "bf_ring": [float(_F(_F(_F(2) * _F(PI_F)) / _F(8)) * _F(i)) for i in range(8)],
+    # heist's key ring: its radius a float, the keys' x and y double
+    # expressions of it
+    "ring_key_r": float(_F(0.03)),
 }
 
 
