@@ -280,9 +280,9 @@ GENASSETS_TIMED_STEPS = 60
 # script inside its limit on a slow host
 PROFILE_STEPS = 3
 SPLIT_STEPS = 10
-# timed calls of a plain version, after one untimed, in each of its two
-# turns: up to 0.9 s a call (bossfight's 232 slots), and the readings of
-# a turn agree to 0.2%
+# timed calls of a plain version, after one untimed, in its one turn
+# between the kernel's two: up to 0.9 s a call (bossfight's 232 slots);
+# two turns' readings agreed to 0.2%, so a second turn is not taken
 PLAIN_ITERS = 1
 T_START = time.perf_counter()
 
@@ -470,30 +470,29 @@ def suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch, count=None):
 
 def time_frame(x, rk):
     """render_frame and render_frame_reference on ``x`` in turns (kernel,
-    plain, kernel, plain): mean ms of each and the four readings.  The
-    launches are not counted."""
+    plain, kernel): mean ms of the kernel's two readings, the plain
+    version's one, and the three readings.  The launches are not
+    counted."""
     saved = dict(rk.LAUNCHES)
     k1 = cuda_ms(lambda: rk.render_frame(x), 200)
     p1 = cuda_ms(lambda: rk.render_frame_reference(x), PLAIN_ITERS)
     k2 = cuda_ms(lambda: rk.render_frame(x), 200)
-    p2 = cuda_ms(lambda: rk.render_frame_reference(x), PLAIN_ITERS)
     rk.LAUNCHES.update(saved)
-    return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}"
+    return (k1 + k2) / 2, p1, f"{k1:.4f}, {p1:.4f}, {k2:.4f}"
 
 
 def suffix_times(base, ent_f, ent_i, atlas, nz, decor, rk):
     """render_suffix and render_suffix_reference on these inputs in turns
-    (kernel, plain, kernel, plain): mean ms of each and the four readings.
-    The launches are not counted."""
+    (kernel, plain, kernel): mean ms of the kernel's two readings, the
+    plain version's one, and the three readings.  The launches are not
+    counted."""
     saved = dict(rk.LAUNCHES)
     k1 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
     p1 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor),
                  PLAIN_ITERS)
     k2 = cuda_ms(lambda: rk.render_suffix(base, ent_f, ent_i, atlas, nz, decor), 200)
-    p2 = cuda_ms(lambda: rk.render_suffix_reference(base, ent_f, ent_i, atlas, nz, decor),
-                 PLAIN_ITERS)
     rk.LAUNCHES.update(saved)
-    return (k1 + k2) / 2, (p1 + p2) / 2, f"{k1:.4f}, {p1:.4f}, {k2:.4f}, {p2:.4f}"
+    return (k1 + k2) / 2, p1, f"{k1:.4f}, {p1:.4f}, {k2:.4f}"
 
 
 def zero_counts(*mods):
@@ -531,19 +530,21 @@ def main(argv=()):
         f"{nvcc_ver} | {card} | count {torch.cuda.device_count()}")
     dev = torch.device("cuda")
 
-    # the CPU halves of the card-against-CPU runs, meanwhile
+    # the CPU halves of the card-against-CPU runs and of the painter
+    # checks, meanwhile
     start_cpu_worker(only)
+    start_painter_worker(only)
     try:
         return run_phases(dev, card, np, torch, only)
     finally:
         stop_cpu_worker()
 
 
-# the phases after the build, in order: the fifteen slices, then memory
-# mode and generated assets
+# the phases after the build, in order: the sixteen slices, then memory
+# mode, monochrome sprites and generated assets
 PHASES = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
           "bigfish", "dodgeball", "bossfight", "climber", "ninja", "chaser", "heist",
-          "jumper", "memory", "genassets")
+          "jumper", "caveflyer", "memory", "mono", "genassets")
 
 
 def run_phases(dev, card, np, torch, only=None):
@@ -576,7 +577,9 @@ def run_phases(dev, card, np, torch, only=None):
         "chaser": lambda: chaser_phase(dev, card, np, torch),
         "heist": lambda: heist_phase(dev, card, np, torch),
         "jumper": lambda: jumper_phase(dev, card, np, torch),
+        "caveflyer": lambda: caveflyer_phase(dev, card, np, torch),
         "memory": lambda: [memory_phase(dev, card, np, torch)],
+        "mono": lambda: mono_phase(dev, card, np, torch),
         "genassets": lambda: genassets_phase(dev, card, np, torch),
     }
     runs, rows = [], []
@@ -586,7 +589,7 @@ def run_phases(dev, card, np, torch, only=None):
         t0 = time.perf_counter()
         out = phases[name]()
         walls[name] = time.perf_counter() - t0
-        if name in ("memory", "genassets"):
+        if name in ("memory", "mono", "genassets"):
             rows += out
         else:
             runs.append((name, out[0]))
@@ -721,7 +724,7 @@ CPU_RUNS = (("maze", False, {}), ("miner", False, {}), ("coinrun", False, {}),
             ("leaper", True, {}), ("bigfish", True, {}), ("dodgeball", True, {}),
             ("bossfight", True, {}), ("climber", True, {}), ("ninja", True, {}),
             ("chaser", True, {}), ("heist", True, {}), ("jumper", True, {}),
-            ("maze", True, MEMORY), ("maze", True, GEN),
+            ("caveflyer", True, {}), ("maze", True, MEMORY), ("maze", True, GEN),
             ("coinrun", True, GEN))
 
 
@@ -789,11 +792,12 @@ def start_cpu_worker(only=None):
 
 
 def stop_cpu_worker():
-    proc = _CPU.get("proc")
-    if proc is not None:
-        if proc.is_alive():
-            proc.terminate()
-        proc.join()
+    """Stop the CPU worker and the painter worker."""
+    for proc in (_CPU.get("proc"), _PAINTER.get("proc")):
+        if proc is not None:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
 
 
 def cpu_run(i):
@@ -1057,7 +1061,7 @@ def miner_phase(dev, card, np, torch):
     b_ms, b_by, b_work = frame_bound(x, rk, torch)
     bh_ms, bh_by, bh_work = frame_bound(x_hard, rk, torch)
     log("miner", f"render_frame at N={NUM_ENVS}: easy kernel {kernel_ms:.4f} ms, "
-        f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel, plain: {readings}), "
+        f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel: {readings}), "
         f"bound {b_ms:.4f} ms ({b_by}; {b_work}); hard kernel {kh:.4f} ms, bound "
         f"{bh_ms:.4f} ms ({bh_by}; {bh_work}) on {card}; <BG_CROP> instance: "
         f"{occupancy(rk.frame_occupancy(x))}")
@@ -1161,7 +1165,7 @@ def coinrun_phase(dev, card, np, torch):
     bc_ms, bc_by, bc_work = frame_bound(xc, rk, torch)
     log("coinrun", f"render_frame at N={NUM_ENVS} ({int(carry.states.decor.count.sum())} "
         f"live trails): whole-world camera kernel {kernel_ms:.4f} ms, plain torch "
-        f"{plain_ms:.4f} ms (kernel, plain, kernel, plain: {readings}), bound "
+        f"{plain_ms:.4f} ms (kernel, plain, kernel: {readings}), bound "
         f"{b_ms:.4f} ms ({b_by}; {b_work}); centred kernel {kc_ms:.4f} ms, plain "
         f"{pc_ms:.4f} ms ({creadings}), bound {bc_ms:.4f} ms ({bc_by}; {bc_work}) "
         f"on {card}; <BG_CROP> instance, whole world: {occupancy(rk.frame_occupancy(x))}; "
@@ -1286,7 +1290,7 @@ def fruitbot_phase(dev, card, np, torch):
     bh_ms, bh_by, bh_work = frame_bound(x_hard, rk, torch)
     log("fruitbot", f"render_frame at N={NUM_ENVS} ({int(carry.states.ents.count.sum())} "
         f"live slots): whole-world camera kernel {kernel_ms:.4f} ms, plain torch "
-        f"{plain_ms:.4f} ms (kernel, plain, kernel, plain: {readings}), bound "
+        f"{plain_ms:.4f} ms (kernel, plain, kernel: {readings}), bound "
         f"{b_ms:.4f} ms ({b_by}; {b_work}); centred kernel {kc_ms:.4f} ms, plain "
         f"{pc_ms:.4f} ms ({creadings}), bound {bc_ms:.4f} ms ({bc_by}; {bc_work}); "
         f"hard kernel {kh_ms:.4f} ms, plain {ph_ms:.4f} ms ({hreadings}), bound "
@@ -1538,7 +1542,7 @@ def plunder_phase(dev, card, np, torch):
     b_ms, b_by, b_work = suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch)
     log("plunder", f"render_suffix (decor instance) at N={NUM_ENVS} ({int(s.ents.count.sum())} "
         f"live slots, {int(s.decor.count.sum())} explosions): kernel {kernel_ms:.4f} ms, "
-        f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel, plain: {readings}), "
+        f"plain torch {plain_ms:.4f} ms (kernel, plain, kernel: {readings}), "
         f"bound {b_ms:.4f} ms ({b_by}; {b_work}) "
         f"on {card}; <true> instance: "
         f"{occupancy(rk.suffix_occupancy(ent_f.shape[1], decor.dec_f.shape[1]))}")
@@ -2122,7 +2126,7 @@ def chaser_phase(dev, card, np, torch):
         f"{plan0.game.ENT_CAP}); max_abs_err {err}")
     for mode, (NC, k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
         log("chaser", f"render_frame (mode {mode}, NC {NC}) at N={NUM_ENVS}: kernel "
-            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel, plain: "
+            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel: "
             f"{readings}), bound {b_ms:.4f} ms ({b_by}; {work}), the kernel at "
             f"{100 * b_ms / k_ms:.1f}% of it, on {card}; <BG_CROP> instance: {occ[mode]}")
 
@@ -2214,7 +2218,7 @@ def heist_phase(dev, card, np, torch):
         f"max_abs_err {err}")
     for mode, (NC, k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
         log("heist", f"render_frame (mode {mode}, NC {NC}) at N={NUM_ENVS}: kernel "
-            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel, plain: "
+            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel: "
             f"{readings}), bound {b_ms:.4f} ms ({b_by}; {work}), the kernel at "
             f"{100 * b_ms / k_ms:.1f}% of it, on {card}; <BG_CROP> instance: {occ[mode]}")
 
@@ -2300,7 +2304,7 @@ def jumper_phase(dev, card, np, torch):
         f"easy windows (20 and 15 cells); max_abs_err {err}")
     for (mode, NC), (k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
         log("jumper", f"render_frame (mode {mode}, NC {NC}) at N={NUM_ENVS}: kernel "
-            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel, plain: "
+            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel: "
             f"{readings}), bound {b_ms:.4f} ms ({b_by}; {work}), the kernel at "
             f"{100 * b_ms / k_ms:.1f}% of it, on {card}; <BG_CROP> instance: "
             f"{occ[(mode, NC)]}")
@@ -2313,6 +2317,224 @@ def jumper_phase(dev, card, np, torch):
     kernel_ms, plain_ms, _, b_ms, b_by, _ = timed[(0, 20)]
     return (carry, step, wall_ms), frame_row("jumper", launches, err, kernel_ms,
                                              plain_ms, b_ms, b_by)
+
+
+def caveflyer_phase(dev, card, np, torch):
+    """Caveflyer: the whole-frame kernel at its largest blocks, the whole
+    world of 30, 40 and 60 cells (memory's: 151 entity slots and 32 decor
+    slots over a 60x60 window) and the centred windows of 13 and 19 cells,
+    the ship, its bullets and exhaust on the 32-bucket rotation banks.
+    The slice first; then ``render_frame`` against its plain version on
+    the prep of the slice's 4096 easy states and of 4096 hard and 4096
+    memory states after 20 steps, each under both cameras, on the slice's
+    states with every slot of both pools turned to angles from -10^4 to
+    10^4 rad, and on 4096 envs of edge-case slots at memory's caps in its
+    whole-world window; the kernel's time and bound in each window and
+    each instance's occupancy; the centred ``ProcgenGym3Env``; card against
+    CPU; the three recordings.  Returns ((carry, step, ms a step), the
+    kernels line's row)."""
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core.constants import INT32_MAX, MEMORY_MODE
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.games.caveflyer import Caveflyer
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    def game_of(mode, centred):
+        game = Caveflyer(GameOptions(distribution_mode=mode, center_agent=centred))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        return game
+
+    # the main path
+    carry, launches, step, wall_ms = run_slice("caveflyer", dev, card, np, torch)
+    total = WARM_STEPS + TIMED_STEPS
+    if launches["render_frame"] != total or launches["render_suffix"] != 0:
+        raise AssertionError(f"caveflyer: launches {launches} in {total} steps")
+
+    # kernel vs plain version under both cameras: the slice's easy states,
+    # hard and memory states after 20 steps (shots a third of the time)
+    seeds = torch.as_tensor(np.random.RandomState(81).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    rng = np.random.RandomState(1)
+    err, timed, occ, live = 0, {}, {}, {}
+    for mode in (0, 1, MEMORY_MODE):
+        if mode == 0:
+            st = carry.states
+        else:
+            game = game_of(mode, False)
+            st = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+            for _ in range(20):
+                acts = np.where(rng.rand(NUM_ENVS) < 0.33, 9, rng.randint(0, 9, NUM_ENVS))
+                st, _ = lifecycle.env_step(game, st, torch.as_tensor(acts, device=dev))
+        live[mode] = (int(st.ents.count.sum()), int(st.decor.count.sum()))
+        for centred in (False, True):
+            game = game_of(mode, centred)
+            plan = rk.get_plan(game)
+            want_nc = int(game.visibility) + 3 if centred else game.world_dim
+            x = rk.prep_frame(plan, st)
+            if plan.static or x.gtab.shape[1] != want_nc:
+                raise AssertionError(f"caveflyer mode {mode}: window of {x.gtab.shape[1]} cells")
+            err = max(err, frame_check(x, f"caveflyer mode {mode} states (NC {want_nc})", rk,
+                                       torch))
+            timed[(mode, want_nc)] = (*time_frame(x, rk), *frame_bound(x, rk, torch))
+            occ[(mode, want_nc)] = occupancy(rk.frame_occupancy(x))
+            del x
+        if mode > 0:
+            del st
+
+    # every slot of both pools of the slice's states turned: quarter turns,
+    # angles within 1e-4 of them, the banks' bucket edges, any angle
+    turned, banked = rk.turned_states(carry.states, 81), 0
+    for centred in (False, True):
+        plan = rk.get_plan(game_of(0, centred))
+        x = rk.prep_frame(plan, turned)
+        first = plan.ent_atlas.transparent_row + 1
+        for xi in (x.ent_i, x.dec_i):
+            row = xi[..., rk.EI_ROW]
+            banked += int(((row >= first) & (row < plan.n1e) & (xi[..., rk.EI_LIVE] > 0)).sum())
+        err = max(err, frame_check(x, f"turned caveflyer states (NC {plan.NC})", rk, torch))
+        del x
+    del turned
+    mem = rk.get_plan(game_of(MEMORY_MODE, False))
+    err = max(err, edge_frame_check(mem, mem.game.ENT_CAP, mem.game.DECOR_CAP, 81, rk, torch))
+    log("caveflyer", f"render_frame byte-equal: {NUM_ENVS} states of each mode (0: the "
+        f"slice's, 1 and 10: after 20 steps; live entity and decor slots by mode: {live}) "
+        f"under the whole-world camera and the centred one (windows by (mode, NC): "
+        f"{list(timed)}), the slice's states with both pools turned (the easy windows; "
+        f"{banked} live slots on bank rows), {NUM_ENVS} envs of edge-case slots with both "
+        f"pools full ({mem.game.ENT_CAP} + {mem.game.DECOR_CAP}) in memory's whole-world "
+        f"window (NC {mem.NC}); max_abs_err {err}")
+    for (mode, NC), (k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
+        log("caveflyer", f"render_frame (mode {mode}, NC {NC}) at N={NUM_ENVS}: kernel "
+            f"{k_ms:.4f} ms, plain torch {p_ms:.4f} ms (kernel, plain, kernel: "
+            f"{readings}), bound {b_ms:.4f} ms ({b_by}; {work}), the kernel at "
+            f"{100 * b_ms / k_ms:.1f}% of it, on {card}; <BG_CROP> instance: "
+            f"{occ[(mode, NC)]}")
+
+    gym_centred("caveflyer", card, np, torch)
+    keys = gpu_matches_cpu("caveflyer", np, torch, states=True)
+    checked = [replay_on_card(f"caveflyer_{m}") for m in ("easy", "hard", "memory")]
+    log("caveflyer", f"64 envs x {CPU_STEPS} steps: GPU and CPU bit-equal (obs, rewards, "
+        f"firsts, {', '.join(keys)}); caveflyer_easy, _hard and _memory replays exact "
+        f"({checked} steps)")
+    kernel_ms, plain_ms, _, b_ms, b_by, _ = timed[(0, 30)]
+    return (carry, step, wall_ms), frame_row("caveflyer", launches, err, kernel_ms,
+                                             plain_ms, b_ms, b_by)
+
+
+def mono_phase(dev, card, np, torch):
+    """Monochrome sprites: every slot on the kernels' fallback-colour branch
+    and the grid drawn without a tile atlas.  ``render_frame`` against its
+    plain version on the prep of 4096 coinrun states (whole world and
+    centred) and 4096 chaser states after 20 steps, ``render_suffix`` on
+    4096 maze states after 20 steps (their prefix frames drawn with
+    coloured cells at the reset); each kernel's time and bound; the
+    coinrun_mono and chaser_mono recordings replayed on the card with the
+    ``render_frame`` launches counted, and 30 steps of a 4096-env maze
+    ``ProcgenGym3Env(use_monochrome_assets=True)`` with the
+    ``render_suffix`` launches counted.  Returns the kernels line's rows."""
+    from procgen_tpu_torch import ProcgenGym3Env
+    from procgen_tpu_torch.core import lifecycle
+    from procgen_tpu_torch.core.constants import INT32_MAX
+    from procgen_tpu_torch.core.options import GameOptions
+    from procgen_tpu_torch.games.registry import make_game
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    def game_of(name, centred):
+        game = make_game(name, GameOptions(distribution_mode=0, center_agent=centred,
+                                           use_monochrome_assets=True))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        return game
+
+    seeds = torch.as_tensor(np.random.RandomState(91).randint(0, 2**31, NUM_ENVS),
+                            dtype=torch.int64, device=dev)
+    rng = np.random.RandomState(1)
+    err, timed = 0, {}
+    for name, cams in (("coinrun", (False, True)), ("chaser", (False,)), ("maze", (False,))):
+        game = game_of(name, False)
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        for _ in range(PRE_STEPS):
+            s, _ = lifecycle.env_step(game, s, torch.as_tensor(rng.randint(0, 15, NUM_ENVS),
+                                                               device=dev))
+        for centred in cams:
+            plan = rk.get_plan(game_of(name, centred))
+            what = f"{name}{' centred' if centred else ''}"
+            if plan.ent_atlas is not None or plan.S != 2:
+                raise AssertionError(f"{what} mono: an entity atlas")
+            if plan.static:
+                ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+                fb = ent_i[..., rk.EI_FB]
+                base = s.frame.contiguous()
+                atlas = plan.atlas(dev)
+                nz = len(plan.z_levels)
+                err = max(err, suffix_check(base, ent_f, ent_i, atlas, nz, decor,
+                                            f"{what} mono states", rk, torch))
+                k_ms, p_ms, readings = suffix_times(base, ent_f, ent_i, atlas, nz, decor, rk)
+                b = suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch,
+                                 count=s.ents.count)
+            else:
+                x = rk.prep_frame(plan, s)
+                fb = x.ent_i[..., rk.EI_FB]
+                if plan.grid_atlas is not None or int(x.gtab.abs().sum()) != 0:
+                    raise AssertionError(f"{what} mono: a grid atlas")
+                err = max(err, frame_check(x, f"{what} mono states (NC {plan.NC})", rk, torch))
+                k_ms, p_ms, readings = time_frame(x, rk)
+                b = frame_bound(x, rk, torch)
+                del x
+            if not bool((fb == 1).all()):
+                raise AssertionError(f"{what} mono: a slot off the fallback branch")
+            timed[what] = (k_ms, p_ms, readings, *b)
+        del s
+    for what, (k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
+        log("mono", f"{'render_suffix' if what == 'maze' else 'render_frame'} ({what} "
+            f"mono) at N={NUM_ENVS}: kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms "
+            f"(kernel, plain, kernel: {readings}), bound {b_ms:.4f} ms ({b_by}; {work}), "
+            f"the kernel at {100 * b_ms / k_ms:.1f}% of it, on {card}")
+    log("mono", f"byte-equal on {NUM_ENVS} monochrome states after {PRE_STEPS} steps of "
+        f"coinrun (whole world, centred), chaser and maze (suffix), every slot on the "
+        f"fallback-colour branch; max_abs_err {err}")
+
+    # the main paths: the two recordings and the maze gym3 surface
+    path_launches = {}
+    for rec in ("coinrun_mono", "chaser_mono"):
+        zero_counts(rk)
+        checked = replay_on_card(rec, "conformance_opts")
+        path_launches[rec] = dict(rk.LAUNCHES)
+        if path_launches[rec]["render_frame"] < checked:
+            raise AssertionError(f"{rec}: launches {path_launches[rec]} in {checked} steps")
+    env = ProcgenGym3Env(num=NUM_ENVS, env_name="maze", distribution_mode="easy",
+                         rand_seed=0, device="cuda", use_monochrome_assets=True)
+    acts = np.random.RandomState(5).randint(0, 15, size=(GYM_TIMED_STEPS, NUM_ENVS))
+    zero_counts(rk)
+    for a in acts:
+        env.act(a.astype(np.int32))
+        _, obs, _ = env.observe()
+    path_launches["maze_mono"] = dict(rk.LAUNCHES)
+    if path_launches["maze_mono"]["render_suffix"] != GYM_TIMED_STEPS \
+            or obs["rgb"].shape != (NUM_ENVS, 64, 64, 3):
+        raise AssertionError(f"maze mono gym3: launches {path_launches['maze_mono']}")
+    del env
+    log("mono", f"coinrun_mono and chaser_mono replays exact on the card; launches on "
+        f"the main paths (the replays, {GYM_TIMED_STEPS} act + observe steps of a "
+        f"{NUM_ENVS}-env maze ProcgenGym3Env): {path_launches}")
+    rows = [frame_row(f"{name}_mono", path_launches[f"{name}_mono"], err,
+                      *timed[what][:2], *timed[what][3:5])
+            for name, what in (("coinrun", "coinrun centred"), ("chaser", "chaser"))]
+    k_ms, p_ms, _, b_ms, b_by, _ = timed["maze"]
+    rows.append({
+        "name": "render_suffix",
+        "path": "maze_mono",
+        "route": "cuda",
+        "source": "procgen_tpu_torch/csrc/render_suffix.cu",
+        "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
+        "launches": path_launches["maze_mono"]["render_suffix"],
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
+    return rows
 
 
 # memory mode's states for the kernel checks: (game, random steps after
@@ -2361,7 +2583,7 @@ def memory_phase(dev, card, np, torch):
     for name, (NC, live, k_ms, p_ms, readings, b_ms, b_by, work) in timed.items():
         log("memory", f"render_frame ({name} memory, NC = {NC}) at N={NUM_ENVS} "
             f"({live} live slots): kernel {k_ms:.4f} ms, plain torch {p_ms:.4f} ms "
-            f"(kernel, plain, kernel, plain: {readings}), bound {b_ms:.4f} ms ({b_by}; "
+            f"(kernel, plain, kernel: {readings}), bound {b_ms:.4f} ms ({b_by}; "
             f"{work}), the kernel at {100 * b_ms / k_ms:.1f}% of it, on {card}")
     log("memory", f"render_frame byte-equal on {NUM_ENVS} memory states of "
         f"{[n for n, _ in MEMORY_STATES]} and {NUM_ENVS} envs of edge-case slots at "
@@ -2514,6 +2736,97 @@ def gym_genassets(name, dev, card, np, torch, baseline=False, timed=GENASSETS_TI
     return launches, rates[True], rates.get(False)
 
 
+def painter_seeds(np):
+    """The seeds of the painter checks: 256 seeded streams, and the
+    4096 of the timed batch."""
+    return (np.random.RandomState(21).randint(0, 2**31, 256),
+            np.random.RandomState(22).randint(0, 2**31, NUM_ENVS))
+
+
+def painter_edge_envs():
+    """The envs of the 4096-env batch within 4 of each 1024-env chunk
+    edge of ``assetgen_bg``."""
+    return [e for b in range(0, NUM_ENVS + 1, 1024) for e in range(b - 4, b + 4)
+            if 0 <= e < NUM_ENVS]
+
+
+def painter_blocks(np, torch, device):
+    """The draw blocks of the 256 seeded streams and the longest path's
+    words (int64 [257, N_MAX]) on ``device``."""
+    from procgen_tpu_torch.core import assetgen, rng
+
+    seeds = torch.as_tensor(painter_seeds(np)[0], dtype=torch.int64, device=device)
+    vals, _ = rng.draw_block(rng.seed(seeds), assetgen.N_MAX)
+    longest = torch.as_tensor(assetgen.longest_path_words(0), device=device)[None]
+    return torch.cat([vals, longest]).contiguous()
+
+
+def word_sum(vals, torch):
+    """A checksum of draw blocks: each word times its flat position plus
+    one, summed modulo 2^64 (the same on the CPU and the card)."""
+    pos = torch.arange(1, vals.numel() + 1, dtype=torch.int64, device=vals.device)
+    return int((vals.reshape(-1) * pos).sum())
+
+
+def painter_refs(np, torch):
+    """The CPU halves of the painter checks: the plain painter on the
+    blocks of ``painter_blocks`` and on the chunk-edge envs of the 4096
+    batch, each as (checksum of the words, canvases, words used), the
+    arrays numpy's (a tensor sent through a queue is shared through the
+    sender's file descriptors, which close when the worker ends)."""
+    from procgen_tpu_torch.core import assetgen, rng
+
+    vals = painter_blocks(np, torch, "cpu")
+    seeds = torch.as_tensor(painter_seeds(np)[1][painter_edge_envs()], dtype=torch.int64)
+    edge_vals, _ = rng.draw_block(rng.seed(seeds), assetgen.N_MAX)
+    return tuple((word_sum(v, torch), *(t.numpy() for t in
+                                        assetgen.generate_background_reference(v)))
+                 for v in (vals, edge_vals))
+
+
+PAINTER_THREADS = 2
+_PAINTER = {}  # the painter worker: its process and queue
+
+
+def painter_worker(queue):
+    """``painter_refs`` in a process of its own, started with the CPU
+    worker, so that the genassets phase does not wait for the CPU."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(PAINTER_THREADS)
+    t0 = time.perf_counter()
+    queue.put((painter_refs(np, torch), time.perf_counter() - t0))
+
+
+def start_painter_worker(only=None):
+    import multiprocessing
+
+    if only is not None and "genassets" not in only:
+        return
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=painter_worker, args=(queue,), daemon=True)
+    proc.start()
+    _PAINTER.update(proc=proc, queue=queue)
+
+
+def painter_result():
+    """The painter worker's result (waited for), the seconds it took and
+    the seconds this process waited."""
+    import queue
+
+    t0 = time.perf_counter()
+    while True:
+        try:
+            refs, secs = _PAINTER["queue"].get(timeout=5)
+            return refs, secs, time.perf_counter() - t0
+        except queue.Empty:
+            if not _PAINTER["proc"].is_alive():
+                raise RuntimeError(f"the painter worker ended (exit code "
+                                   f"{_PAINTER['proc'].exitcode}) without a result")
+
+
 def genassets_phase(dev, card, np, torch):
     """Generated assets: the painter, the painted canvas in render_frame,
     the gym3 path, card against CPU, the recording.  Returns the kernels
@@ -2525,18 +2838,20 @@ def genassets_phase(dev, card, np, torch):
     from procgen_tpu_torch.core import assetgen
     from procgen_tpu_torch.render import render_kernel as rk
 
-    # the painter against its plain version (on the CPU copy of the words)
+    # the painter against its plain version, which the painter worker ran
+    # on the CPU on the same words
     t0 = time.perf_counter()
-    seeds = torch.as_tensor(np.random.RandomState(21).randint(0, 2**31, 256),
-                            dtype=torch.int64, device=dev)
-    vals, _ = rng.draw_block(rng.seed(seeds), assetgen.N_MAX)
-    longest = torch.as_tensor(assetgen.longest_path_words(0), device=dev)[None]
-    vals = torch.cat([vals, longest]).contiguous()
+    refs, secs, waited = painter_result()
+    vals = painter_blocks(np, torch, dev)
+    longest = vals[-1:].contiguous()
     saved = dict(assetgen.LAUNCHES)
     got_c, got_u = assetgen.generate_background(vals)
     torch.cuda.synchronize()
     assetgen.LAUNCHES.update(saved)
-    want_c, want_u = assetgen.generate_background_reference(vals.cpu())
+    (sum_w, want_c, want_u), (edge_sum, edge_c, edge_u) = (
+        (w, torch.from_numpy(c), torch.from_numpy(u)) for w, c, u in refs)
+    if word_sum(vals, torch) != sum_w:
+        raise AssertionError("the card's draw blocks differ from the CPU's")
     perr = int((got_c.cpu().int() - want_c.int()).abs().max())
     if perr != 0 or not torch.equal(got_u.cpu(), want_u):
         raise AssertionError(f"assetgen_bg != plain (max err {perr}, words used "
@@ -2547,12 +2862,12 @@ def genassets_phase(dev, card, np, torch):
         f"{int(want_u[:-1].min())}-{int(want_u[:-1].max())}, mean "
         f"{float(want_u[:-1].float().mean()):.1f}) and the longest path (50701 "
         f"words, {assetgen.MAX_PAINTS} paints); max_abs_err {perr} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({time.perf_counter() - t0:.1f} s; the painter worker's plain versions "
+        f"took {secs:.1f} s on the CPU, waited for {waited:.1f} s)")
 
     # its time: a replenish chunk (64 envs), the initial reset (4096), one
     # env (the serial walk's latency), against the plain version at 64
-    big_seeds = torch.as_tensor(np.random.RandomState(22).randint(0, 2**31, NUM_ENVS),
-                                dtype=torch.int64, device=dev)
+    big_seeds = torch.as_tensor(painter_seeds(np)[1], dtype=torch.int64, device=dev)
     v4096, _ = rng.draw_block(rng.seed(big_seeds), assetgen.N_MAX)
     v4096 = v4096.contiguous()
     v64 = v4096[:64].contiguous()
@@ -2574,13 +2889,13 @@ def genassets_phase(dev, card, np, torch):
     b4096, b4096_by, b4096_work = painter_bound(v4096, u4096, torch, ops=False)
     # the initial reset's 4096 envs go through the kernel's chunks of 1024,
     # one paint scratch reused: the envs on each side of every chunk edge
-    # against the plain version
+    # against the plain version (the painter worker's)
     t1 = time.perf_counter()
-    edge = torch.tensor([e for b in range(0, NUM_ENVS + 1, 1024)
-                         for e in range(b - 4, b + 4) if 0 <= e < NUM_ENVS], device=dev)
-    want_c, want_u = assetgen.generate_background_reference(v4096[edge].cpu())
-    perr = max(perr, int((c4096[edge].cpu().int() - want_c.int()).abs().max()))
-    if perr != 0 or not torch.equal(u4096[edge].cpu(), want_u):
+    edge = torch.tensor(painter_edge_envs(), device=dev)
+    if word_sum(v4096[edge], torch) != edge_sum:
+        raise AssertionError("the card's draw blocks differ from the CPU's at the edges")
+    perr = max(perr, int((c4096[edge].cpu().int() - edge_c.int()).abs().max()))
+    if perr != 0 or not torch.equal(u4096[edge].cpu(), edge_u):
         raise AssertionError(f"assetgen_bg at {NUM_ENVS} envs != plain on the chunk edges "
                              f"(max err {perr})")
     log("genassets", f"assetgen_bg at {NUM_ENVS} envs byte-equal on the {edge.numel()} "
@@ -2591,7 +2906,7 @@ def genassets_phase(dev, card, np, torch):
         f"{b64_work}); 4096 envs {k4096:.4f} ms, bound {b4096:.5f} ms ({b4096_by}; "
         f"{b4096_work}); one env {k1:.4f} ms ({int(u64[0])} words), the longest "
         f"path alone {k1_long:.4f} ms (the serial walk's latency) on {card}")
-    del vals, got_c, want_c, v4096, c4096
+    del vals, got_c, want_c, edge_c, v4096, c4096
 
     # render_frame on the painted canvas against its plain version
     def game_of(name, centred):

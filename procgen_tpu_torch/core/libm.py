@@ -24,7 +24,9 @@ and those are glibc 2.36's (x86_64):
   ``sysdeps/ieee754/flt-32``), in f32, unfused.
 * ``sincos_times``: a double ``sin``/``cos`` times an f32 speed, rounded
   once to f32 (starpilot's spawners, bossfight's bullets), on fdlibm's
-  f64 reduction and kernels.
+  f64 reduction and kernels (``sincos_f64``, the double values
+  themselves, for caveflyer's headings and exhaust); ``atan2_f64``:
+  fdlibm's double ``atan2`` (caveflyer's enemy headings).
 
 Every operation takes a tensor operand or a Python float that is exact in
 the operation's dtype; no torch op that fuses a multiply and an add
@@ -275,13 +277,16 @@ _PIO2_1 = 1.57079632673412561417e+00
 _PIO2_1T = 6.07710050650619224932e-11
 
 
-def _sincos_f64(x: torch.Tensor):
-    """fdlibm's double ``sin(x)`` and ``cos(x)`` (s_sin.c, s_cos.c) of an
-    f64 tensor with |x| < 2^19 pi/2: up to |x| <= pi/4 the kernels alone,
-    past it ``__ieee754_rem_pio2``'s first round (n = |x| 2/pi rounded,
-    |x| - n pi/2 as a head and a tail; good to 85 bits, which an f32
-    argument never needs the second round past) and the kernel of n's
-    quadrant."""
+def sincos_f64(x: torch.Tensor):
+    """C's double ``sin(x)`` and ``cos(x)`` as fdlibm computes them (s_sin.c,
+    s_cos.c), f64 tensors, of an f32 or f64 tensor with |x| < 2^19 pi/2:
+    up to |x| <= pi/4 the kernels alone, past it ``__ieee754_rem_pio2``'s
+    first round (n = |x| 2/pi rounded, |x| - n pi/2 as a head and a tail;
+    good to 85 bits, which an f32 argument never needs the second round
+    past) and the kernel of n's quadrant.  The operands of a C++ float
+    expression that calls them and is evaluated in double (caveflyer's
+    exhaust, ``x - rx * cos(theta)``)."""
+    x = x.to(f64)
     t = torch.abs(x)
     small = (t.view(i64) >> 32) <= 0x3FE921FB
     n = torch.trunc(t * _INV_PIO2 + 0.5)
@@ -311,7 +316,7 @@ def sincos_times(theta: torch.Tensor, v: torch.Tensor):
     spawners and each of its speeds (``tools/torch_libm_sweep.py
     --spawners``) and at bossfight's bullet headings
     (``tests/test_torch_bossfight.py``)."""
-    sin, cos = _sincos_f64(theta.to(f64))
+    sin, cos = sincos_f64(theta)
     v = v.to(f64)
     return (sin * v).to(f32), (cos * v).to(f32)
 
@@ -388,3 +393,82 @@ def atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.where(iy == 0, y_zero, out)
     out = torch.where(hx == 0x3F800000, _atanf(y), out)
     return torch.where((ix > 0x7F800000) | (iy > 0x7F800000), x + y, out)
+
+
+# -- s_atan.c / e_atan2.c (fdlibm), f64 -----------------------------------------
+
+_DATANHI = (4.63647609000806093515e-01, 7.85398163397448278999e-01,
+            9.82793723247329054082e-01, 1.57079632679489655800e+00)
+_DATANLO = (2.26987774529616870924e-17, 3.06161699786838301793e-17,
+            1.39033110312309984516e-17, 6.12323399573676603587e-17)
+_DAT = (3.33333333333329318027e-01, -1.99999999998764832476e-01,
+        1.42857142725034663711e-01, -1.11111104054623557880e-01,
+        9.09088713343650656196e-02, -7.69187620504482999495e-02,
+        6.66107313738753120669e-02, -5.83357013379057348645e-02,
+        4.97687799461593236017e-02, -3.65315727442169155270e-02,
+        1.62858201153657823623e-02)
+_DPI = 3.1415926535897931160e+00
+_DPI_O_2 = 1.5707963267948965580e+00
+_DPI_LO = 1.2246467991473531772e-16
+
+
+def _atan_f64(x: torch.Tensor) -> torch.Tensor:
+    """fdlibm's double ``atan`` (s_atan.c) of a finite f64 tensor."""
+    hx = (x.view(i64) >> 32).to(i32)
+    ix = hx & 0x7FFFFFFF
+    ax = torch.abs(x)
+    one = _full(x, 1.0)
+    r0 = (2.0 * ax - 1.0) / (2.0 + ax)
+    r1 = (ax - 1.0) / (ax + 1.0)
+    r2 = (ax - 1.5) / (one + 1.5 * ax)
+    r3 = _full(x, -1.0) / ax
+    idx = torch.where(ix < 0x3FDC0000, -1, torch.where(
+        ix < 0x3FE60000, 0, torch.where(
+            ix < 0x3FF30000, 1, torch.where(ix < 0x40038000, 2, 3))))
+    xr = torch.where(idx == -1, x, torch.where(idx == 0, r0, torch.where(
+        idx == 1, r1, torch.where(idx == 2, r2, r3))))
+    z = xr * xr
+    w = z * z
+    a = _DAT
+    s1 = z * (a[0] + w * (a[2] + w * (a[4] + w * (a[6] + w * (a[8] + w * a[10])))))
+    s2 = w * (a[1] + w * (a[3] + w * (a[5] + w * (a[7] + w * a[9]))))
+    near = xr - xr * (s1 + s2)
+    k = idx.clamp_min(0).long()
+    hi = torch.tensor(_DATANHI, dtype=f64, device=x.device)[k]
+    lo = torch.tensor(_DATANLO, dtype=f64, device=x.device)[k]
+    far = hi - ((xr * (s1 + s2) - lo) - xr)
+    far = torch.where(hx < 0, -far, far)
+    out = torch.where(idx == -1, near, far)
+    out = torch.where(ix < 0x3E200000, x, out)  # |x| < 2^-29
+    # |x| >= 2^66: +-(atanhi[3] + atanlo[3])
+    inf_v = _full(x, _DATANHI[3]) + _DATANLO[3]
+    return torch.where(ix >= 0x44100000, torch.where(hx > 0, inf_v, -inf_v), out)
+
+
+def atan2_f64(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """C's double ``atan2(y, x)`` of finite f32 or f64 tensors, as an f64
+    tensor: fdlibm's ``e_atan2.c`` in explicit f64 operations, the same
+    bits on the CPU and the card (caveflyer's enemy headings, a C++ float
+    expression that calls it, evaluated in double).  fdlibm's is within an
+    ulp of glibc's; ``tests/test_torch_libm.py`` holds the two to the same
+    f32 heading on the axis velocities caveflyer's enemies take (signed
+    zeros, exact multiples of pi / 2), and to an ulp elsewhere."""
+    y, x = torch.broadcast_tensors(y.to(f64), x.to(f64))
+    hx = (x.view(i64) >> 32).to(i32)
+    hy = (y.view(i64) >> 32).to(i32)
+    m = ((hy >> 31) & 1) | ((hx >> 30) & 2)  # 2 * sign(x) + sign(y)
+    pi = _full(x, _DPI)
+    pi_o_2 = _full(x, _DPI_O_2)
+    # the general case: z = atan(|y / x|), then the quadrant
+    k = ((hy & 0x7FFFFFFF) - (hx & 0x7FFFFFFF)) >> 20
+    z = _atan_f64(torch.abs(y / x))
+    z = torch.where((hx < 0) & (k < -60), 0.0, z)
+    z = torch.where(k > 60, pi_o_2 + 0.5 * _DPI_LO, z)
+    out = torch.where(m == 0, z, torch.where(
+        m == 1, -z, torch.where(m == 2, pi - (z - _DPI_LO), (z - _DPI_LO) - pi)))
+    # the special cases, innermost last in the C's order of tests (pi +
+    # tiny rounds to pi)
+    out = torch.where(x == 0, torch.where(hy < 0, -pi_o_2, pi_o_2), out)
+    y_zero = torch.where(m <= 1, y, torch.where(m == 2, pi, -pi))
+    out = torch.where(y == 0, y_zero, out)
+    return torch.where(x == 1.0, _atan_f64(y), out)

@@ -1,10 +1,9 @@
 """Game registry (reference: procgen/src/game-registry.{h,cpp}).
 
 Games self-register via ``@register(name)``; ``make_game(name, options)``
-replaces ``globalGameRegistry->at(name)()``.  The port carries maze,
-miner, coinrun, fruitbot, starpilot, plunder, leaper, bigfish, dodgeball,
-bossfight, climber, ninja, chaser, heist and jumper so far; caveflyer is
-queued in ROADMAP.md.
+replaces ``globalGameRegistry->at(name)()``.  The port carries all 16
+games: maze, miner, coinrun, fruitbot, starpilot, plunder, leaper, bigfish,
+dodgeball, bossfight, climber, ninja, chaser, heist, jumper and caveflyer.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ _REGISTRY: dict[str, type] = {}
 # modules that register games on import (grown as games are ported)
 _GAME_MODULES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder",
                  "leaper", "bigfish", "dodgeball", "bossfight", "climber", "ninja",
-                 "chaser", "heist", "jumper"]
+                 "chaser", "heist", "jumper", "caveflyer"]
 
 
 def register(name: str):

@@ -84,13 +84,18 @@ LAUNCHES = {"render_suffix": 0, "render_frame": 0}
 
 
 class RenderPlan:
-    """Static per-game plan: the atlases in the kernels' layouts."""
+    """Static per-game plan: the atlases in the kernels' layouts.
+
+    Under ``use_monochrome_assets`` there is no entity or grid atlas
+    (pallas_kernel.py:129-162): the entity atlas is a 2x2 placeholder of
+    one transparent row and its transpose (``S`` 2, ``n1e`` 1), every slot
+    paints its ``color_for_type`` colour (``_prep_pool``), and the grid is
+    a 2x2 placeholder row that covers nothing (``sA`` 2, every cell row 0,
+    ``grid_opaque`` 0), so the cells are drawn by the colored-cell pass."""
 
     def __init__(self, game, res: int):
         assert res == RES, "the frame kernel is 64x64 only"
         grid_atlas, bg_atlas, ent_atlas = get_atlases(game, res)
-        if ent_atlas is None:
-            raise NotImplementedError("monochrome sprites not ported (ROADMAP)")
         self.game = game
         self.res = res
         self.static = bool(game.static_prefix)
@@ -104,8 +109,10 @@ class RenderPlan:
         self.dz_slots = tuple(
             self.dz_levels.index(z) if z in self.dz_levels else -1 for z in (-1, 0, 1)
         )
-        self.S = ent_atlas.tile_px
-        rows = ent_atlas.rows  # [n1e, S, S, 4] u8, transparent row kept
+        # rows: [n1e, S, S, 4] u8, the transparent row kept
+        rows = (np.zeros((1, 2, 2, 4), np.uint8) if ent_atlas is None
+                else ent_atlas.rows)
+        self.S = rows.shape[1]
         self.n1e = rows.shape[0]
         # rows, then their transposes: the quarter-turn variants
         self.arrays = {"ent": np.ascontiguousarray(
@@ -118,10 +125,14 @@ class RenderPlan:
             self.NC = (int(game.visibility) + 3 if game.center_agent
                        else max(wmax, hmax))
             self.grid_atlas = grid_atlas
-            self.sA = grid_atlas.tile_px
-            # rows below this one are tiles that cover their cell
-            self.grid_opaque = grid_atlas.transparent_row
-            self.arrays["grid"] = grid_atlas.rows  # [n_rows, sA, sA, 4] u8
+            if grid_atlas is None:  # monochrome: no tile covers a cell
+                self.sA, self.grid_opaque = 2, 0
+                self.arrays["grid"] = np.zeros((1, 2, 2, 4), np.uint8)
+            else:
+                self.sA = grid_atlas.tile_px
+                # rows below this one are tiles that cover their cell
+                self.grid_opaque = grid_atlas.transparent_row
+                self.arrays["grid"] = grid_atlas.rows  # [n_rows, sA, sA, 4] u8
             # under generated assets each env paints its own canvas
             # (state.bg_canvas): square, cropped or tiled, never scrolled
             # (pallas_kernel.py:632, bg_scroll and not bg_procgen)
@@ -188,7 +199,7 @@ def _known_cell_colors():
 def supports(game, res: int = RES) -> bool:
     """Games whose per-step frame this module reproduces: the JAX gate
     (procgen_tpu/render/pallas_kernel.py:204-215) restricted to the ported
-    paths, textured, and either the static prefix with z in (0, 1) in
+    paths: either the static prefix with z in (0, 1) in
     the entity pool and the decor pool, if any, or the whole frame with a
     fixed background image, cropped (``bg_tile_ratio >= 0``), tiled
     vertically (``bg_tile_ratio < 0``, fruitbot) or scrolled with time
@@ -197,11 +208,11 @@ def supports(game, res: int = RES) -> bool:
     in (-1, 0, 1) in both pools, under the static camera or the
     agent-centred one (memory mode's centred window of ``visibility + 3``
     cells among them), colored cells drawn whole or, as chaser's orbs, on
-    a centred inset (``grid_cell_inset``).  Monochrome sprites are not
-    ported."""
+    a centred inset (``grid_cell_inset``); textured or monochrome
+    (``use_monochrome_assets``: every slot and cell its fallback colour)."""
     from ..core.game import BasicAbstractGame
 
-    if res != RES or game.options.use_monochrome_assets:
+    if res != RES:
         return False
     if type(game).paint_background is not BasicAbstractGame.paint_background:
         from ..games.starpilot import Starpilot
@@ -303,8 +314,12 @@ def _prep_pool(plan: RenderPlan, s, e, mask, z_levels, cam):
     live_all = e.active & (img_all >= 0) & (img_all != SPACE)
     if mask is not None:
         live_all = live_all & mask
-    row_all = plan.ent_atlas.row_for(img_all, game.mask_theme(img_all, e.image_theme))
-    is_fallback = row_all == plan.ent_atlas.transparent_row
+    if plan.ent_atlas is not None:
+        row_all = plan.ent_atlas.row_for(img_all, game.mask_theme(img_all, e.image_theme))
+        is_fallback = row_all == plan.ent_atlas.transparent_row
+    else:  # monochrome: every slot its fallback colour
+        row_all = torch.zeros_like(img_all, dtype=i32)
+        is_fallback = torch.ones_like(live_all)
     tile_ratio_all = game.entity_tile_ratio(s, e)
 
     x0_w = (e.x - e.rx) * c(unit) - c(x_off)
@@ -333,9 +348,12 @@ def _prep_pool(plan: RenderPlan, s, e, mask, z_levels, cam):
     qf = e.rotation * (2.0 / torch.pi)
     q = torch.remainder(torch.round(qf).to(i32), 4)
     refl = e.is_reflected
-    arb = torch.abs(qf - torch.round(qf)) > 1e-4
-    brow, has_bank = plan.ent_atlas.bank_row_for(row_all, refl.to(i32), e.rotation)
-    use_bank = arb & has_bank
+    if plan.ent_atlas is not None:
+        arb = torch.abs(qf - torch.round(qf)) > 1e-4
+        brow, has_bank = plan.ent_atlas.bank_row_for(row_all, refl.to(i32), e.rotation)
+        use_bank = arb & has_bank
+    else:  # no rotation banks
+        brow, use_bank = row_all, torch.zeros_like(refl)
 
     grow = torch.where(use_bank, ROT_OVERHANG, 1.0).to(f32)
     x0 = x0 - w2 * (grow - 1.0) * 0.5
@@ -472,7 +490,8 @@ def prep_frame(plan: RenderPlan, s) -> FrameInputs:
 
     gt, top_y, low_x = grid_window(game, s)
     sf[:, SF_TOPY], sf[:, SF_LOWX] = top_y.to(f32), low_x.to(f32)
-    gtab = grid_rows(game, s, gt, plan.grid_atlas)
+    gtab = (torch.zeros(gt.shape, dtype=i32, device=dev) if plan.grid_atlas is None
+            else grid_rows(game, s, gt, plan.grid_atlas))
 
     # colored-cell planes, evaluated at the cell centre (:356-369)
     half = torch.full(gt.shape, 0.5, dtype=f32, device=dev)
@@ -1201,6 +1220,26 @@ def synthetic_frame_inputs(n: int, NC: int, cap: int, grid_atlas, bg_atlas,
     )
 
 
+def turned_states(s, seed: int = 0):
+    """``s`` (states on any device) with every slot of both pools turned
+    to made-up angles from -10^4 to 10^4 rad: a quarter turn k pi / 2, one
+    within 2e-4 of it (either side of prep's 1e-4 threshold), a bucket edge
+    (b + 1/2) 2 pi / 32 of the rotation banks, or any angle, a quarter of
+    the slots each.  Built with numpy from ``seed``."""
+    rng = np.random.RandomState(seed)
+    for pool in ("ents", "decor"):
+        e = getattr(s, pool)
+        shape = tuple(e.rotation.shape)
+        k = rng.randint(-6366, 6367, shape)
+        angles = np.choose(rng.randint(0, 4, shape), [
+            k * (np.pi / 2), k * (np.pi / 2) + rng.choice([-2e-4, -5e-5, 5e-5, 2e-4], shape),
+            (rng.randint(-50000, 50000, shape) + 0.5) * (2 * np.pi / 32),
+            rng.uniform(-1e4, 1e4, shape)]).astype(np.float32)
+        s = s.replace(**{pool: e.replace(
+            rotation=torch.as_tensor(angles, device=e.rotation.device))})
+    return s
+
+
 ORB_INSET = float(np.float32(0.3))  # chaser's orbs (games/chaser.ORB_DIM)
 
 
@@ -1268,8 +1307,8 @@ def render_obs_batch(game, states, res: int = RES):
     path for CUDA states, its plain torch version for CPU states."""
     if not supports(game, res):
         raise NotImplementedError(
-            f"{game.name}: the frame kernels do not take this frame (monochrome "
-            f"sprites, a custom background or cell colors, or its z levels)"
+            f"{game.name}: the frame kernels do not take this frame (a custom "
+            f"background or cell colors, or its z levels)"
         )
     plan = get_plan(game, res)
     if plan.static:

@@ -12,7 +12,8 @@ This is the path of the per-level static prefix (``prefix_only``), which
 the JAX package also computes outside its Pallas kernel, the plain oracle
 of the per-step suffix (``base``), and, with neither, the plain oracle of
 the whole frame of a game that is not static (miner, coinrun, fruitbot,
-starpilot).
+starpilot, ...).  Under ``use_monochrome_assets`` it follows the XLA
+renderer's coloured rectangles (``_paint_pool``) and coloured cells.
 """
 
 from __future__ import annotations
@@ -84,8 +85,6 @@ def render_obs(game, s, res: int = 64, base=None, prefix_only=False):
     wys = vis[:, None] - (sy - y_off[:, None]) / unit[:, None]  # per row
 
     grid_atlas, bg_atlas, ent_atlas = get_atlases(game, res)
-    if ent_atlas is None:
-        raise NotImplementedError("monochrome sprites not ported (ROADMAP)")
 
     if base is not None:
         obs = base.to(i32)
@@ -119,15 +118,16 @@ def render_obs(game, s, res: int = 64, base=None, prefix_only=False):
 
     ent_z = _wanted(game.ENT_Z_LEVELS)
     dec_z = _wanted(game.DECOR_Z_LEVELS) if game.DECOR_CAP else ()
+    mono = ent_atlas is None  # use_monochrome_assets: coloured rectangles
     ents_canv = (
         _sprite_canvases(game, s, s.ents, draw_mask, ent_atlas, res, unit,
                          vis, x_off, y_off, sx, sy, ent_z)
-        if ent_z else None
+        if ent_z and not mono else None
     )
     decor_canv = (
         _sprite_canvases(game, s, s.decor, None, ent_atlas, res, unit, vis,
                          x_off, y_off, sx, sy, dec_z)
-        if dec_z else None
+        if dec_z and not mono else None
     )
 
     def _apply_canvas(obs, canv):
@@ -138,6 +138,14 @@ def render_obs(game, s, res: int = 64, base=None, prefix_only=False):
     def paint_z(obs, zlevel):
         # the entity pool's canvas, then the decor pool's (the JAX
         # package's split-pool paint order, procgen_tpu/core/game.py:118-121)
+        if mono:
+            if zlevel in ent_z:
+                obs = _paint_pool(game, s, obs, s.ents, zlevel, draw_mask, res,
+                                  wxs, wys, sx, sy)
+            if zlevel in dec_z:
+                obs = _paint_pool(game, s, obs, s.decor, zlevel, None, res,
+                                  wxs, wys, sx, sy)
+            return obs
         if ents_canv is not None and zlevel in ent_z:
             obs = _apply_canvas(obs, ents_canv[ent_z.index(zlevel)])
         if decor_canv is not None and zlevel in dec_z:
@@ -305,6 +313,39 @@ def scroll_lookup(x_off, sx, sy, res: int, BH: int, BW: int):
     in_x = (tx >= 0) & (tx < 18.0 * (3 * res))
     row_idx = ((sy + float(res)) * inv_side * BH).to(i32).clamp(0, BH - 1)
     return row_idx, col_idx, in_x
+
+def _paint_pool(game, s, obs, pool, zlevel, mask, res, wxs, wys, sx, sy):
+    """One pool at one z level under ``use_monochrome_assets``
+    (procgen_tpu/render/renderer.py:125-165): each pixel takes the colour
+    of the last live slot whose rectangle holds it, opaque; its world
+    rectangle is ``|wx - x| < rx`` and ``|wy - y| < ry``, an absolute one
+    ``x0 <= sx < x0 + 2 res rx`` with ``x0 = res (x - rx)``."""
+    e = pool
+    n = e.x.shape[0]
+    img_all = game.image_for_type(s, e.image_type)
+    live_all = e.active & (e.render_z == zlevel) & (img_all >= 0) & (img_all != SPACE)
+    if mask is not None:
+        live_all = live_all & mask
+    winner = torch.full(obs.shape[:3], -1, dtype=torch.int64, device=obs.device)
+    for i in range(int(e.count.max()) if n else 0):
+        c = lambda t: t[:, i:i + 1]  # noqa: E731  slot i, [N, 1]
+        xcov_w = torch.abs(wxs - c(e.x)) < c(e.rx)
+        ycov_w = torch.abs(wys - c(e.y)) < c(e.ry)
+        x0 = res * (c(e.x) - c(e.rx))
+        y0 = res * (c(e.y) + c(e.ry))
+        xcov_a = (sx >= x0) & (sx < x0 + 2 * res * c(e.rx))
+        ycov_a = (sy >= y0) & (sy < y0 + 2 * res * c(e.ry))
+        ua = c(e.use_abs_coords)
+        xcov = torch.where(ua, xcov_a, xcov_w)
+        ycov = torch.where(ua, ycov_a, ycov_w)
+        cover = ycov[:, :, None] & xcov[:, None, :] & live_all[:, i, None, None]
+        winner = torch.where(cover, i, winner)
+    r, g, b = game.color_for_type(img_all, e.image_theme)
+    colors = torch.stack([torch.as_tensor(v, device=obs.device).to(i32).expand(n, e.cap)
+                          for v in (r, g, b)], dim=-1)  # [N, cap, 3]
+    col = colors.gather(1, winner.clamp_min(0).reshape(n, -1, 1).expand(-1, -1, 3))
+    return torch.where((winner >= 0)[..., None], col.reshape(obs.shape), obs)
+
 
 def _sprite_canvases(game, s, pool, mask, atlas, res, unit, vis, x_off,
                      y_off, sx, sy, z_levels):

@@ -876,6 +876,8 @@ def _edge_inputs(case, n, dev):
         "starpilot": (_starpilot(), 64, 32, rk.BG_SCROLL),
         "climber": (Climber(GameOptions(distribution_mode=1, center_agent=True)), 24, 0,
                     rk.BG_CROP),
+        # caveflyer memory's whole world: the largest frame block (60 cells)
+        "caveflyer": (_caveflyer(10, False), 151, 32, rk.BG_CROP),
     }[case]
     plan = rk.get_plan(game)
     return rk.synthetic_frame_inputs(
@@ -885,7 +887,7 @@ def _edge_inputs(case, n, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["maze", "plunder", "dodgeball", "bossfight", "miner",
-                                  "coinrun", "fruitbot", "starpilot", "climber"])
+                                  "coinrun", "fruitbot", "starpilot", "climber", "caveflyer"])
 def test_cuda_kernels_match_plain_version_on_edge_slots(case):
     """Both kernels on the edge cases at full caps (masks of several words),
     byte-equal to their plain versions."""
@@ -1047,3 +1049,146 @@ def test_cuda_frame_kernel_screen_slots_over_a_centred_window():
     want = rk.render_frame_reference(x)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _caveflyer(mode, centred):
+    from procgen_tpu_torch.games.caveflyer import Caveflyer
+
+    game = Caveflyer(GameOptions(distribution_mode=mode, center_agent=centred))
+    game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+    return game
+
+
+def _caveflyer_states(mode, n, dev="cpu", steps=12):
+    """``n`` caveflyer states of ``mode`` after ``steps`` steps, shots a
+    third of the time; and the same states with every slot of both pools
+    turned (``render_kernel.turned_states``)."""
+    game = _caveflyer(mode, False)
+    seeds = torch.arange(n, dtype=torch.int64, device=dev) * 7919 + 5
+    s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+    rs = np.random.RandomState(mode)
+    for _ in range(steps):
+        a = np.where(rs.rand(n) < 0.33, 9, rs.randint(0, 9, n))
+        s, _ = lifecycle.env_step(game, s, torch.as_tensor(a, device=dev))
+    return s, rk.turned_states(s, mode)
+
+
+def test_caveflyer_blocks_fit():
+    """Caveflyer's six windows fit a block's shared memory: the whole
+    world of memory mode (60 cells, 151 entity and 32 decor slots) is the
+    largest frame block, 74,592 B, past coinrun's whole world (67,104 B);
+    memory's centred window (19 cells, the same pools) 61,648 B; the
+    easy and hard windows under the default 48 KB."""
+    sizes = {}
+    for mode, dim in ((0, 30), (1, 40), (10, 60)):
+        for centred in (False, True):
+            game = _caveflyer(mode, centred)
+            plan = rk.get_plan(game)
+            assert plan.NC == ((13 if mode == 0 else 19) if centred else dim)
+            sizes[(mode, centred)] = rk.frame_smem(plan.NC, game.ENT_CAP, game.DECOR_CAP)
+    assert max(sizes.values()) == sizes[(10, False)] == 74592 <= rk.SMEM_MAX
+    assert sizes[(10, False)] > rk.frame_smem(64, 48, 96) == 67104
+    assert sizes[(10, True)] == 61648
+    assert max(v for (mode, _), v in sizes.items() if mode != 10) < 48 * 1024
+
+
+def test_monochrome_plans_have_no_atlases():
+    """Under ``use_monochrome_assets`` the plans keep the Pallas plan's
+    placeholders: a 2x2 entity atlas of one transparent row and its
+    transpose, a 2x2 grid row that covers nothing; every slot's prep is on
+    the fallback-colour branch, off the banks, and the frame's cells are
+    the colored-cell planes alone."""
+    for name, mode in (("coinrun", 0), ("chaser", 0), ("maze", 0), ("caveflyer", 10)):
+        from procgen_tpu_torch.games.registry import make_game
+
+        game = make_game(name, GameOptions(distribution_mode=mode, use_monochrome_assets=True))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        assert rk.supports(game)
+        plan = rk.get_plan(game)
+        assert plan.ent_atlas is None and (plan.S, plan.n1e) == (2, 1)
+        assert plan.atlas("cpu").shape == (2, 2, 2, 4) and int(plan.atlas("cpu").sum()) == 0
+        if not plan.static:
+            assert (plan.sA, plan.grid_opaque) == (2, 0)
+            assert tuple(plan.on("grid", "cpu").shape) == (1, 2, 2, 4)
+        seeds = torch.arange(4, dtype=torch.int64) + 11
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        ent_f, ent_i = rk.prep(plan, s)
+        assert bool((ent_i[..., rk.EI_FB] == 1).all())
+        assert bool((ent_i[..., rk.EI_ROW] <= 1).all())
+        if not plan.static:
+            x = rk.prep_frame(plan, s)
+            assert int(x.gtab.abs().sum()) == 0 and float(x.cell5[:, 3].sum()) > 0
+            out = rk.render_frame_reference(x)
+            assert out.shape == (4, 64, 64, 3)
+
+
+def test_turned_states_reach_the_banks():
+    """``turned_states`` puts caveflyer's ship, bullets and exhaust on the
+    rotation banks and leaves some slots on quarter turns (transposed or
+    flipped variants), in both pools; the plain frame renders them."""
+    plan = rk.get_plan(_caveflyer(0, False))
+    _, s = _caveflyer_states(0, 16)
+    x = rk.prep_frame(plan, s)
+    first = plan.ent_atlas.transparent_row + 1
+    for xi in (x.ent_i, x.dec_i):
+        live = xi[..., rk.EI_LIVE] > 0
+        row = xi[..., rk.EI_ROW]
+        assert bool((live & (row >= first) & (row < plan.n1e)).any())
+        assert bool((live & ((row < first) | (row >= plan.n1e))).any())
+    assert bool((x.ent_i[..., rk.EI_ROW] >= plan.n1e).any())  # transposed
+    assert rk.render_frame_reference(x).shape == (16, 64, 64, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 10])
+@pytest.mark.parametrize("centred", [False, True])
+def test_cuda_frame_kernel_caveflyer_windows(mode, centred):
+    """``render_frame`` in caveflyer's six windows (30, 40, 60 cells; 13,
+    19, 19 centred) on states with bullets, exhaust and explosions, and
+    on the same states with every slot turned to angles up to 10^4 rad
+    (the rotation banks), byte-equal to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    plan = rk.get_plan(_caveflyer(mode, centred))
+    for s in _caveflyer_states(mode, 256, dev):
+        x = rk.prep_frame(plan, s)
+        got = rk.render_frame(x)
+        want = rk.render_frame_reference(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["coinrun", "chaser", "maze"])
+def test_cuda_kernels_fallback_colour_slots(name):
+    """Monochrome states: every slot on the kernels' fallback-colour
+    branch, the grid without a tile atlas (``render_frame`` for coinrun,
+    under both cameras, and chaser; ``render_suffix`` for maze over its
+    coloured prefix), byte-equal to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from procgen_tpu_torch.games.registry import make_game
+
+    dev = torch.device("cuda")
+    seeds = torch.arange(256, dtype=torch.int64, device=dev) * 104729 + 7
+    for centred in ((False, True) if name == "coinrun" else (False,)):
+        game = make_game(name, GameOptions(distribution_mode=0, center_agent=centred,
+                                           use_monochrome_assets=True))
+        game.level_seed_low, game.level_seed_high = 0, INT32_MAX
+        s = lifecycle.env_reset(game, lifecycle.initial_state(game, seeds))
+        for a in np.random.RandomState(3).randint(0, 15, (12, 256)):
+            s, _ = lifecycle.env_step(game, s, torch.as_tensor(a, device=dev))
+        plan = rk.get_plan(game)
+        if plan.static:
+            ent_f, ent_i, decor = rk.prep_suffix(plan, s)
+            args = (s.frame.contiguous(), ent_f, ent_i, plan.atlas(dev),
+                    len(plan.z_levels), decor)
+            got, want = rk.render_suffix(*args), rk.render_suffix_reference(*args)
+        else:
+            x = rk.prep_frame(plan, s)
+            ent_i = x.ent_i
+            got, want = rk.render_frame(x), rk.render_frame_reference(x)
+        torch.cuda.synchronize()
+        assert bool((ent_i[..., rk.EI_FB] == 1).all())
+        assert torch.equal(got, want)

@@ -213,11 +213,12 @@ def test_large_arguments_are_not_ported():
 
 
 def test_no_fused_or_library_trig_on_the_path():
-    """Starpilot's step takes its trig from ``core/libm.py`` alone, and the
-    module fuses no multiply into an add."""
-    from procgen_tpu_torch.games import starpilot
+    """Starpilot's and caveflyer's steps take their trig from
+    ``core/libm.py`` alone, and the module fuses no multiply into an
+    add."""
+    from procgen_tpu_torch.games import caveflyer, starpilot
 
-    for mod in (starpilot, libm):
+    for mod in (starpilot, caveflyer, libm):
         # the code, without its docstrings and comments
         code = "\n".join(ln.split("#")[0] for ln in inspect.getsource(mod).splitlines())
         code = code.replace(inspect.getdoc(mod) or "", "")
@@ -225,3 +226,59 @@ def test_no_fused_or_library_trig_on_the_path():
                        "math.sin(", "math.atan2(", ".cos()", ".sin()", "addcmul",
                        "addcdiv", "lerp", "baddbmm", "torch.fma"):
             assert banned not in code, (mod.__name__, banned)
+
+
+def _glibc_f64():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for name in ("cos", "sin"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_double, [ctypes.c_double]
+    lib.atan2.restype = ctypes.c_double
+    lib.atan2.argtypes = [ctypes.c_double, ctypes.c_double]
+    return lib
+
+
+def test_caveflyer_double_trig_matches_glibc():
+    """Caveflyer's C++ double expressions, in the port's f64 forms, against
+    glibc's double ``cos``, ``sin`` and ``atan2``: on 65,536 headings from
+    -10^4 to 10^4 rad (1,024 of them within 2^-20 of a quarter turn) the
+    thrust ``f32(accel * cos(theta))``, ``sin`` likewise, and the exhaust's
+    ``f32(x - rx * cos(theta))``; on every axis velocity an enemy takes
+    (``vx`` or ``vy`` zero of either sign, the other of either sign, speeds
+    from 0.05 to 0.2) the heading ``f32(-atan2(vy, vx) - PI / 2)``; all
+    bit-equal.  Off the axes fdlibm's ``atan2`` stays within an ulp of
+    glibc's in double."""
+    lib = _glibc_f64()
+    rs = np.random.RandomState(14)
+    theta = rs.uniform(-1e4, 1e4, 65536).astype(F32)
+    k = rs.randint(-6366, 6367, 1024)
+    theta[:1024] = (k * (np.pi / 2) + rs.uniform(-2**-20, 2**-20, 1024)).astype(F32)
+    accel = rs.choice(np.array([1.0, -0.33], F32), theta.size)
+    x = rs.uniform(0, 60, theta.size).astype(F32)
+    rx = rs.choice(np.array([0.4, 0.5, 0.25], F32), theta.size)
+    sin_d, cos_d = (t.numpy() for t in libm.sincos_f64(torch.from_numpy(theta)))
+    want_c = np.array([lib.cos(float(t)) for t in theta])
+    want_s = np.array([lib.sin(float(t)) for t in theta])
+    a64 = accel.astype(np.float64)
+    for got, want in ((sin_d, want_s), (cos_d, want_c)):
+        np.testing.assert_array_equal((a64 * got).astype(F32), (a64 * want).astype(F32))
+    np.testing.assert_array_equal(
+        (x.astype(np.float64) - rx.astype(np.float64) * cos_d).astype(F32),
+        (x.astype(np.float64) - rx.astype(np.float64) * want_c).astype(F32))
+
+    v = rs.uniform(0.05, 0.2, 4096).astype(F32)
+    sign = rs.choice([-1.0, 1.0], (4096, 2)).astype(F32)
+    zero = rs.choice(np.array([0.0, -0.0], F32), 4096)
+    on_x = rs.rand(4096) < 0.5
+    vx = np.where(on_x, sign[:, 0] * v, zero).astype(F32)
+    vy = np.where(on_x, zero, sign[:, 1] * v).astype(F32)
+    half = float(HALF_PI)
+    got = (-libm.atan2_f64(torch.from_numpy(vy), torch.from_numpy(vx)).numpy() - half)
+    want = np.array([-lib.atan2(float(b), float(a)) - half for a, b in zip(vx, vy)])
+    np.testing.assert_array_equal(got.astype(F32), want.astype(F32))
+
+    y2, x2 = (rs.uniform(-16, 16, (2, 65536)) * np.exp2(rs.randint(-8, 9, (2, 65536)))
+              ).astype(F32)
+    got = libm.atan2_f64(torch.from_numpy(y2), torch.from_numpy(x2)).numpy()
+    want = np.array([lib.atan2(float(b), float(a)) for a, b in zip(x2, y2)])
+    assert (np.abs(got - want) <= np.spacing(np.abs(want))).all()

@@ -2,14 +2,14 @@
 
 The recordings in tests/data/conformance_opts/ come from the C++ engine
 under non-default options (restricted themes, sequential levels, no
-backgrounds with velocity info, generated assets) and as adversarial stress runs (coinrun's
-crate push chains, plunder's bullet volleys, dodgeball's ball volleys).  Each one of a ported game
+backgrounds with velocity info, generated assets, monochrome sprites) and as
+adversarial stress runs (coinrun's crate push chains, plunder's bullet
+volleys, dodgeball's ball volleys).  Each one of a ported game
 replays exactly through ``procgen_tpu_torch.conformance.replay`` on the
 CPU: rewards, firsts, level seeds, the previous level's seed and
 completion, and maze's latents at every step.  The three 500-step, 8-env
 stress runs are marked ``slow``, as in tests/test_conformance_options.py.
-The option recordings that need unported code (monochrome sprites, the
-other games) come with their slices (ROADMAP.md).
+Every option recording of the conformance_opts folder replays here.
 """
 
 import json
@@ -23,8 +23,9 @@ from procgen_tpu_torch.conformance import replay
 HERE = os.path.dirname(os.path.abspath(__file__))
 REC_DIR = os.path.join(HERE, "data", "conformance_opts")
 
-FAST = ("coinrun_restrict", "coinrun_seq", "dodgeball_genassets", "heist_restrict",
-        "leaper_seq", "maze_genassets", "maze_nobg_vel", "maze_seq")
+FAST = ("chaser_mono", "coinrun_mono", "coinrun_restrict", "coinrun_seq",
+        "dodgeball_genassets", "heist_restrict", "leaper_seq", "maze_genassets",
+        "maze_nobg_vel", "maze_seq")
 SLOW = ("coinrun_pushchain", "dodgeball_volley", "plunder_volley")
 
 

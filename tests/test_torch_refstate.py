@@ -42,7 +42,13 @@ as the C++ ``is_blocked`` makes it (``Ninja._sub_step_rec``, where the
 package keeps the unblocked axis moving: the bytes hold stars stopped
 flush against walls); heist's key ring takes its radius as the C++
 float (``CPP_F32["ring_key_r"]``; the keys' x and y are double
-expressions of it); nothing else of the package changes.  XLA's f64 ``pow``,
+expressions of it); caveflyer's thrust ``vx += p * .2``, the heading's
+``accel * cos(theta)`` and ``sin``, the exhaust's ``x - rx * cos(theta)``
+and ``y - ry * sin(theta)``, a bullet's ``cos(theta)`` and ``sin(theta)``,
+an enemy's speed ``.1 * rand01() + .1`` and heading ``-1 * atan2(vy, vx) -
+PI / 2`` are evaluated in f64 (the thrust is what the bytes decide; the
+rest follow the C++ reading of its double literals and functions); nothing
+else of the package changes.  XLA's f64 ``pow``,
 ``sin`` and ``cos`` on the CPU are glibc's (``test_patched_f64_is_glibc``).
 
 Tolerance: zero.
@@ -68,7 +74,7 @@ from procgen_tpu_torch.bridge import state_from_numpy  # noqa: E402
 
 GAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder",
          "leaper", "bigfish", "dodgeball", "bossfight", "climber", "ninja",
-         "chaser", "heist", "jumper"]
+         "chaser", "heist", "jumper", "caveflyer"]
 # the fields the C++ bytes do not carry
 NOT_IN_BYTES = {"frame", "bg_canvas", "total_reward", "step_draws",
                 "reset_count"}
@@ -99,6 +105,13 @@ CPP_F64 = {
     "bf_turn": _in_f64(lambda k, c: PI_F * (1.25 + 0.5 * k / 8.0) + c),
     "bf_reflect": _in_f64(lambda r: PI_F * (1.25 + 0.5 * r)),
     "shield_ry": _in_f64(lambda r: 1.2 * r),
+    # caveflyer: the thrust, the exhaust's place, the enemies' speed and
+    # headings
+    "fifth": _in_f64(lambda v, p: v + p * 0.2),
+    "sub_cos": _in_f64(lambda x, r, t: x - r * jnp.cos(t)),
+    "sub_sin": _in_f64(lambda y, r, t: y - r * jnp.sin(t)),
+    "cf_vel": _in_f64(lambda v: 0.1 * v + 0.1),
+    "heading": _in_f64(lambda y, x: -1 * jnp.arctan2(y, x) - PI_F / 2),
 }
 
 # (module, class, method): [(the JAX package's text, its replacement)]
@@ -148,6 +161,26 @@ _PATCHES = {
     ("procgen_tpu.games.heist", "Heist", "game_reset"): [
         # the key ring's radius is a C++ float (heist.cpp:188-199)
         ("ring_key_r = 0.03", "ring_key_r = CPP_F32['ring_key_r']"),
+    ],
+    ("procgen_tpu.games.caveflyer", "Caveflyer", "update_agent_velocity"): [
+        ("vx = e.vx[0] + s.mixrate * s.maxspeed * s.action_vx * 0.2",
+         "vx = CPP_F64['fifth'](e.vx[0], s.mixrate * s.maxspeed * s.action_vx)"),
+        ("vy = e.vy[0] + s.mixrate * s.maxspeed * s.action_vy * 0.2",
+         "vy = CPP_F64['fifth'](e.vy[0], s.mixrate * s.maxspeed * s.action_vy)"),
+    ],
+    ("procgen_tpu.games.caveflyer", "Caveflyer", "set_action_xy"): [
+        ("e.x[0] - e.rx[0] * jnp.cos(theta),", "CPP_F64['sub_cos'](e.x[0], e.rx[0], theta),"),
+        ("e.y[0] - e.ry[0] * jnp.sin(theta),", "CPP_F64['sub_sin'](e.y[0], e.ry[0], theta),"),
+        ("action_vy=accel * jnp.sin(theta),", "action_vy=CPP_F64['sin'](theta, accel),"),
+        ("action_vx=accel * jnp.cos(theta),", "action_vx=CPP_F64['cos'](theta, accel),"),
+    ],
+    ("procgen_tpu.games.caveflyer", "Caveflyer", "game_reset"): [
+        ("vel0 = 0.1 * v01 + 0.1", "vel0 = CPP_F64['cf_vel'](v01)"),
+    ],
+    ("procgen_tpu.games.caveflyer", "Caveflyer", "game_step"): [
+        ("e.x[0], e.y[0], jnp.cos(theta), jnp.sin(theta), 0.1, 0.25,",
+         "e.x[0], e.y[0], CPP_F64['cos'](theta, 1.0), CPP_F64['sin'](theta, 1.0), 0.1, 0.25,"),
+        ("-jnp.arctan2(e.vy, e.vx) + (-PI / 2),", "CPP_F64['heading'](e.vy, e.vx),"),
     ],
     ("procgen_tpu.games.bossfight", "Bossfight", "game_reset"): [
         ("1.2 * BOSS_R, 1.2 * BOSS_R / boss_ar, SHIELDS",

@@ -184,14 +184,36 @@ def test_frame_matches_render_obs(which, cases):
 
 def test_supports_the_ported_paths_only():
     """The whole-frame path takes miner easy, hard and memory (the centred
-    window of 11 cells); monochrome sprites still raise."""
+    window of 11 cells), and monochrome sprites: their frames equal the
+    Pallas kernel's in interpret mode (the kernel path) and the XLA
+    renderer's (the plain renderer).  The JAX package's atlas cache key
+    leaves out ``use_monochrome_assets``, so its atlas and plan caches are
+    emptied for the monochrome game and given back their entries after."""
+    from procgen_tpu.render import atlas as jatlas
+
     for mode in (0, 1, 10):
         assert rk.supports(TMiner(GameOptions(distribution_mode=mode)))
     assert rk.get_plan(TMiner(GameOptions(distribution_mode=10))).NC == 11
     mono = TMiner(GameOptions(distribution_mode=0, use_monochrome_assets=True))
-    assert not rk.supports(mono)
-    with pytest.raises(NotImplementedError, match="monochrome"):
-        rk.render_obs_batch(mono, _states(mono, 0, 0))
+    mono.level_seed_low, mono.level_seed_high = 0, INT32_MAX
+    jmono = JMiner(JGameOptions(distribution_mode=0, use_monochrome_assets=True))
+    jmono.level_seed_low, jmono.level_seed_high = 0, INT32_MAX
+    assert rk.supports(mono)
+    ts = _states(mono, 0, 12)
+    js = _jax_state(jmono, ts)
+    saved = dict(jatlas._CACHE), dict(pallas_kernel._PLANS)
+    jatlas._CACHE.clear()
+    pallas_kernel._PLANS.clear()
+    try:
+        pallas = np.asarray(jax.jit(
+            lambda st: pallas_kernel.render_obs_batch(jmono, st, 64, interpret=True))(js))
+        xla = np.asarray(jax.jit(jax.vmap(lambda st: jrender_obs(jmono, st, 64)))(js))
+    finally:
+        for cache, entries in zip((jatlas._CACHE, pallas_kernel._PLANS), saved):
+            cache.clear()
+            cache.update(entries)
+    np.testing.assert_array_equal(rk.render_obs_batch(mono, ts).numpy(), pallas)
+    np.testing.assert_array_equal(trender_obs(mono, ts, 64).numpy(), xla)
 
 
 # ---------------------------------------------------------------------------
