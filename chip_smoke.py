@@ -229,11 +229,26 @@ the process exits non-zero):
               on the card and on the CPU for 50 steps, bit-equal, every
               state leaf included; the maze_genassets recording replayed
               exactly on the card.
-20. profile — 3 more steps of each slice under ``torch.profiler``:
+20. surfaces — the gym3 surfaces beside the step: both joint recordings
+              (maze,miner and bossfight,chaser,dodgeball) replayed
+              exactly on the card; a 4096-env ``maze,miner``
+              ``ProcgenGym3Env`` for 30 timed act + observe steps after
+              10, one ``render_suffix`` and one ``render_frame`` launch a
+              step, its interleaved frames of the last step equal to both
+              kernels' plain versions byte for byte, and each kernel's
+              time and bound on its 2048 sub-game states; ``get_state``
+              of a 4096-env maze env and ``set_state`` into a differently
+              seeded one, timed, which then replays 20 steps bit-equal;
+              64-env maze blobs after 20 steps and a 16-env coinrun
+              ``render_mode="rgb_array"`` env's 512x512 ``info["rgb"]``
+              (reset and 2 steps) on the card equal to the CPU worker's,
+              the 512 frame's milliseconds an env; ``rollout_full`` of 10
+              steps equal to 10 act + observe steps.
+21. profile — 3 more steps of each slice under ``torch.profiler``:
               device time a step and the device busy share.  Last of the
               measured phases, since the host dispatch stays slower once
               the profiler has run.
-21. result  — each phase's wall seconds, a JSON line of the kernels
+22. result  — each phase's wall seconds, a JSON line of the kernels
               (``render_suffix``, ``render_frame`` and ``assetgen_bg``
               once for each path that launches them), the card line, and
               the last line ``{"ok": true, "device": {...}}``.
@@ -541,14 +556,14 @@ def main(argv=()):
 
 
 # the phases after the build, in order: the sixteen slices, then memory
-# mode, monochrome sprites and generated assets
+# mode, monochrome sprites, generated assets and the gym3 surfaces
 PHASES = ("maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
           "bigfish", "dodgeball", "bossfight", "climber", "ninja", "chaser", "heist",
-          "jumper", "caveflyer", "memory", "mono", "genassets")
+          "jumper", "caveflyer", "memory", "mono", "genassets", "surfaces")
 
 
 def run_phases(dev, card, np, torch, only=None):
-    """Phases 2 to 21 (with ``only``, the named phases of ``PHASES``; with
+    """Phases 2 to 22 (with ``only``, the named phases of ``PHASES``; with
     no arguments, all of them).  Prints each phase's wall seconds on a line
     before the kernels line."""
     from procgen_tpu_torch import kernels
@@ -581,6 +596,7 @@ def run_phases(dev, card, np, torch, only=None):
         "memory": lambda: [memory_phase(dev, card, np, torch)],
         "mono": lambda: mono_phase(dev, card, np, torch),
         "genassets": lambda: genassets_phase(dev, card, np, torch),
+        "surfaces": lambda: surfaces_phase(dev, card, np, torch),
     }
     runs, rows = [], []
     for name in PHASES:
@@ -589,19 +605,19 @@ def run_phases(dev, card, np, torch, only=None):
         t0 = time.perf_counter()
         out = phases[name]()
         walls[name] = time.perf_counter() - t0
-        if name in ("memory", "mono", "genassets"):
+        if name in ("memory", "mono", "genassets", "surfaces"):
             rows += out
         else:
             runs.append((name, out[0]))
             rows.append(out[1])
 
-    # -- 20. profile: after every timed phase --------------------------------
+    # -- 21. profile: after every timed phase --------------------------------
     t0 = time.perf_counter()
     for name, run in runs:
         profile_slice(name, *run, np, torch)
     walls["profile"] = time.perf_counter() - t0
 
-    # -- 21. result ----------------------------------------------------------
+    # -- 22. result ----------------------------------------------------------
     log("walls", "phase wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + f"; total {time.perf_counter() - T_START:.1f}")
     print(json.dumps({"kernels": rows}))
@@ -719,13 +735,15 @@ GEN = {"use_generated_assets": True}
 MEMORY = {"distribution_mode": "memory"}
 # ``LIBM``: the CPU half of starpilot's libm check (``libm_outputs``)
 LIBM = ("libm", False, {})
+# ``SURFACES``: the CPU half of the surfaces phase (``surface_outputs``)
+SURFACES = ("surfaces", False, {})
 CPU_RUNS = (("maze", False, {}), ("miner", False, {}), ("coinrun", False, {}),
             ("fruitbot", False, {}), LIBM, ("starpilot", True, {}), ("plunder", True, {}),
             ("leaper", True, {}), ("bigfish", True, {}), ("dodgeball", True, {}),
             ("bossfight", True, {}), ("climber", True, {}), ("ninja", True, {}),
             ("chaser", True, {}), ("heist", True, {}), ("jumper", True, {}),
             ("caveflyer", True, {}), ("maze", True, MEMORY), ("maze", True, GEN),
-            ("coinrun", True, GEN))
+            ("coinrun", True, GEN), SURFACES)
 
 
 def run_phase(run):
@@ -733,6 +751,8 @@ def run_phase(run):
     name, _, opts = run
     if run == LIBM:
         return "starpilot"
+    if run == SURFACES:
+        return "surfaces"
     if opts.get("distribution_mode") == "memory":
         return "memory"
     return "genassets" if opts.get("use_generated_assets") else name
@@ -773,6 +793,8 @@ def cpu_worker(queue, runs):
         t0 = time.perf_counter()
         if (name, states, opts) == LIBM:
             run = [t.numpy() for t in libm_outputs("cpu", np, torch)]
+        elif (name, states, opts) == SURFACES:
+            run = surface_outputs("cpu", np)
         else:
             run = gym_run(name, "cpu", states, opts, np)
         queue.put((i, run, time.perf_counter() - t0))
@@ -2989,6 +3011,219 @@ def genassets_phase(dev, card, np, torch):
             "library_ms": None,
         },
     ]
+
+
+# the surfaces phase: the 64-env blob run's steps, the rgb_array env's
+# envs and steps, the joint env's warm-up and timed steps, the restored
+# env's replay and rollout_full's steps
+SURFACE_BLOB_STEPS = 20
+HIRES_ENVS = 16
+HIRES_STEPS = 2
+JOINT_WARM = 10
+RESTORE_STEPS = 20
+ROLLOUT_STEPS = 10
+
+
+def surface_outputs(device, np):
+    """The runs of the surfaces phase held card against CPU: the blobs of a
+    64-env maze ``ProcgenGym3Env`` after ``SURFACE_BLOB_STEPS`` seeded
+    steps (joined), and the 512x512 ``info["rgb"]`` of a ``HIRES_ENVS``-env
+    coinrun one with ``render_mode="rgb_array"`` after its reset and each
+    of ``HIRES_STEPS`` steps."""
+    from procgen_tpu_torch import ProcgenGym3Env
+
+    env = ProcgenGym3Env(num=64, env_name="maze", rand_seed=0, device=device,
+                         distribution_mode="easy")
+    arng = np.random.RandomState(7)
+    for _ in range(SURFACE_BLOB_STEPS):
+        env.act(arng.randint(0, 15, size=64).astype(np.int32))
+    blobs = np.frombuffer(b"".join(env.get_state()), np.uint8)
+    env = ProcgenGym3Env(num=HIRES_ENVS, env_name="coinrun", rand_seed=0, device=device,
+                         distribution_mode="easy", render_mode="rgb_array")
+    frames = [env._vec.observe()[3]["rgb"].cpu().numpy()]
+    for _ in range(HIRES_STEPS):
+        env.act(arng.randint(0, 15, size=HIRES_ENVS).astype(np.int32))
+        frames.append(env._vec.observe()[3]["rgb"].cpu().numpy())
+    return blobs, np.stack(frames)
+
+
+def plain_obs(game, states, rk, torch):
+    """The 64x64 frames of ``render_kernel.render_obs_batch`` with each
+    kernel's plain version in its place."""
+    plan = rk.get_plan(game)
+    if plan.static:
+        ent_f, ent_i, decor = rk.prep_suffix(plan, states)
+        base = states.frame.contiguous()
+        out = rk.render_suffix_reference(base, ent_f, ent_i, plan.atlas(base.device),
+                                         len(plan.z_levels), decor)
+    else:
+        out = rk.render_frame_reference(rk.prep_frame(plan, states))
+    return rk.post(game, states, out.to(torch.int32), 64).to(torch.uint8)
+
+
+def surfaces_phase(dev, card, np, torch):
+    """The gym3 surfaces beside the step (phase 20 of the docstring).
+    Returns the kernels line's rows of the joint env's path."""
+    from procgen_tpu_torch import ProcgenGym3Env
+    from procgen_tpu_torch.parallel.vec import render_hires
+    from procgen_tpu_torch.render import render_kernel as rk
+
+    # the joint recordings
+    checked = [replay_on_card(name) for name in
+               ("joint_maze+miner_easy", "joint_bossfight+chaser+dodgeball_easy")]
+    log("surfaces", f"joint_maze+miner_easy and joint_bossfight+chaser+dodgeball_easy "
+        f"replays exact on the card ({checked[0]} and {checked[1]} steps)")
+
+    # the joint env: its main path, counted; its frames against the plain versions
+    t0 = time.perf_counter()
+    env = ProcgenGym3Env(num=NUM_ENVS, env_name="maze,miner", distribution_mode="easy",
+                         rand_seed=0, device="cuda")
+    init_s = time.perf_counter() - t0
+    acts = np.random.RandomState(5).randint(
+        0, 15, size=(JOINT_WARM + GYM_TIMED_STEPS, NUM_ENVS)).astype(np.int32)
+    for a in acts[:JOINT_WARM]:
+        env.act(a)
+        env.observe()
+    zero_counts(rk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in acts[JOINT_WARM:]:
+        env.act(a)
+        _, obs, _ = env.observe()
+    dt = time.perf_counter() - t0
+    launches = dict(rk.LAUNCHES)
+    if launches != {"render_suffix": GYM_TIMED_STEPS, "render_frame": GYM_TIMED_STEPS} \
+            or obs["rgb"].shape != (NUM_ENVS, 64, 64, 3):
+        raise AssertionError(f"joint maze,miner: launches {launches}, obs {obs['rgb'].shape}")
+    dev_obs = env._vec.observe()[0]
+    subs = env._vec.subs
+    for gi, sub in enumerate(subs):
+        if not torch.equal(dev_obs[gi::2], plain_obs(sub.game, sub.states, rk, torch)):
+            raise AssertionError(f"joint maze,miner: {sub.game.name}'s frames differ "
+                                 f"from the plain version's")
+    log("surfaces", f"ProcgenGym3Env('maze,miner', {NUM_ENVS} envs): "
+        f"{GYM_TIMED_STEPS * NUM_ENVS / dt:.1f} env-steps/s ({dt / GYM_TIMED_STEPS * 1e3:.2f} "
+        f"ms per act+observe, {GYM_TIMED_STEPS} timed steps after {JOINT_WARM}, obs "
+        f"copied to the host; construction {init_s:.2f} s) on {card}; launches {launches}; "
+        f"the last step's frames equal both kernels' plain versions")
+
+    # each kernel's time and bound on its sub-game's states
+    maze, miner = subs
+    plan = rk.get_plan(maze.game)
+    ent_f, ent_i, decor = rk.prep_suffix(plan, maze.states)
+    base = maze.states.frame.contiguous()
+    atlas = plan.atlas(dev)
+    nz = len(plan.z_levels)
+    err = suffix_check(base, ent_f, ent_i, atlas, nz, decor, "joint maze states", rk, torch)
+    s_ms, sp_ms, s_read = suffix_times(base, ent_f, ent_i, atlas, nz, decor, rk)
+    sb_ms, sb_by, s_work = suffix_bound(base, ent_f, ent_i, atlas, nz, decor, rk, torch,
+                                        count=maze.states.ents.count)
+    x = rk.prep_frame(rk.get_plan(miner.game), miner.states)
+    err = max(err, frame_check(x, "joint miner states", rk, torch))
+    f_ms, fp_ms, f_read = time_frame(x, rk)
+    fb_ms, fb_by, f_work = frame_bound(x, rk, torch)
+    del x
+    n_sub = NUM_ENVS // 2
+    log("surfaces", f"render_suffix (joint maze, N={n_sub}): kernel {s_ms:.4f} ms, plain "
+        f"{sp_ms:.4f} ms ({s_read}), bound {sb_ms:.4f} ms ({sb_by}; {s_work}); "
+        f"render_frame (joint miner, N={n_sub}): kernel {f_ms:.4f} ms, plain {fp_ms:.4f} "
+        f"ms ({f_read}), bound {fb_ms:.4f} ms ({fb_by}; {f_work}); on {card}")
+    del env, maze, miner, subs, ent_f, ent_i, base, dev_obs, obs
+
+    # get_state / set_state at full width, and a cross-seed replay
+    a = ProcgenGym3Env(num=NUM_ENVS, env_name="maze", distribution_mode="easy",
+                       rand_seed=0, device="cuda")
+    b = ProcgenGym3Env(num=NUM_ENVS, env_name="maze", distribution_mode="easy",
+                       rand_seed=1, device="cuda")
+    acts = np.random.RandomState(6).randint(
+        0, 15, size=(JOINT_WARM + RESTORE_STEPS, NUM_ENVS)).astype(np.int32)
+    for x_ in acts[:JOINT_WARM]:
+        a.act(x_)
+    b.act(acts[0])
+    get_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blobs = a.get_state()
+        get_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.set_state(blobs)
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3
+    for x_ in acts[JOINT_WARM:]:
+        a.act(x_)
+        b.act(x_)
+        oa, ob = a._vec.observe(), b._vec.observe()
+        for u, v in zip(oa[:3], ob[:3]):
+            if not torch.equal(u, v):
+                raise AssertionError("maze: the restored env's replay diverged")
+        for k in oa[3]:
+            if not torch.equal(oa[3][k], ob[3][k]):
+                raise AssertionError(f"maze: the restored env's {k} diverged")
+    if a.get_state() != b.get_state():
+        raise AssertionError("maze: the restored env's states differ after the replay")
+    log("surfaces", f"maze {NUM_ENVS} envs: get_state {get_ms[0]:.1f} ms and "
+        f"{get_ms[1]:.1f} ms ({len(blobs[0])} B an env), set_state {set_ms:.1f} ms "
+        f"(the pool rebuilt: one env_reset of every env) on {card}; the restore into a "
+        f"differently seeded env replays {RESTORE_STEPS} steps bit-equal")
+    del a, b, blobs
+
+    # card against CPU: blobs and the 512 frame; the 512 frame's time
+    i = next_cpu_run(SURFACES)
+    g_blobs, g_frames = surface_outputs("cuda", np)
+    (c_blobs, c_frames), secs, waited = cpu_run(i)
+    if not np.array_equal(g_blobs, c_blobs):
+        raise AssertionError("maze: the 64-env blobs differ between the card and the CPU")
+    if g_frames.shape != (HIRES_STEPS + 1, HIRES_ENVS, 512, 512, 3) \
+            or not np.array_equal(g_frames, c_frames):
+        raise AssertionError("coinrun: info['rgb'] differs between the card and the CPU")
+    h = ProcgenGym3Env(num=HIRES_ENVS, env_name="coinrun", rand_seed=0, device="cuda",
+                       distribution_mode="easy", render_mode="rgb_array")
+    hv = h._vec
+    h1 = cuda_ms(lambda: render_hires(hv.game, hv.states), 5)
+    h2 = cuda_ms(lambda: render_hires(hv.game, hv.states), 5)
+    log("surfaces", f"64-env maze blobs ({len(g_blobs)} B) after {SURFACE_BLOB_STEPS} "
+        f"steps and the {HIRES_ENVS}-env coinrun info['rgb'] (512x512, reset and "
+        f"{HIRES_STEPS} steps) equal on the card and the CPU (the CPU worker's run took "
+        f"{secs:.1f} s, waited for {waited:.1f} s); the 512 frame: {h1:.2f} and {h2:.2f} "
+        f"ms for {HIRES_ENVS} envs, {(h1 + h2) / 2 / HIRES_ENVS:.3f} ms an env on {card}")
+    del h, hv
+
+    # rollout_full against act + observe
+    r = ProcgenGym3Env(num=64, env_name="maze", rand_seed=2, device="cuda",
+                       distribution_mode="easy")
+    s = ProcgenGym3Env(num=64, env_name="maze", rand_seed=2, device="cuda",
+                       distribution_mode="easy")
+    acts = np.random.RandomState(8).randint(0, 15, size=(ROLLOUT_STEPS, 64)).astype(np.int32)
+    obs_r, rew_r, first_r, info_r = r._vec.rollout_full(acts)
+    for t, x_ in enumerate(acts):
+        s.act(x_)
+        o, rw, f, inf = s._vec.observe()
+        same = (torch.equal(obs_r[t], o) and torch.equal(rew_r[t], rw)
+                and torch.equal(first_r[t], f) and sorted(inf) == sorted(info_r)
+                and all(torch.equal(info_r[k][t], inf[k]) for k in inf))
+        if not same:
+            raise AssertionError(f"rollout_full differs from act + observe at step {t}")
+    log("surfaces", f"rollout_full of {ROLLOUT_STEPS} steps (64-env maze) equals "
+        f"{ROLLOUT_STEPS} act + observe steps, info ({', '.join(sorted(info_r))}) included")
+
+    rows = [frame_row("joint maze,miner", launches, err, f_ms, fp_ms, fb_ms, fb_by)]
+    rows.append({
+        "name": "render_suffix",
+        "path": "joint maze,miner",
+        "route": "cuda",
+        "source": "procgen_tpu_torch/csrc/render_suffix.cu",
+        "replaces": "procgen_tpu/render/pallas_kernel.py:1136",
+        "launches": launches["render_suffix"],
+        "max_abs_err": err,
+        "ms": s_ms,
+        "plain_ms": sp_ms,
+        "bound_ms": sb_ms,
+        "bound_by": sb_by,
+        "library_ms": None,
+    })
+    return rows
 
 
 def torch_ops(fn):

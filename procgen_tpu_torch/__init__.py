@@ -6,20 +6,21 @@ Pallas frame kernel rewritten as CUDA kernels for NVIDIA Hopper:
 csrc/render_suffix.cu (the sprite suffix over a cached per-level frame:
 maze, leaper, bigfish, and plunder, dodgeball and bossfight with their
 decor pools) and csrc/render_frame.cu (the whole frame of a game that is
-not static: miner, coinrun, fruitbot, starpilot, climber, memory mode).
-It imports torch and numpy, never jax or procgen_tpu.  The entry points
-run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``.  So far it covers maze, miner, coinrun, fruitbot,
-starpilot, plunder, leaper, bigfish, dodgeball, bossfight and climber in
-easy and hard mode (starpilot, leaper and dodgeball in extreme mode too,
-maze, miner and dodgeball in memory mode; ROADMAP.md lists what comes
-next).
+not static: miner, coinrun, fruitbot, starpilot, climber, ninja, chaser,
+heist, jumper, caveflyer, memory mode); csrc/assetgen_bg.cu paints the
+generated-assets background at the reset.  It imports torch and
+numpy, never jax or procgen_tpu.  The entry points run on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``.  It covers
+all sixteen games in every distribution mode, generated and monochrome
+assets, the gym3 surface with get_state / set_state, ``render_mode=
+"rgb_array"`` and joint games; ROADMAP.md lists what comes next.
 """
 
 __version__ = "0.1.0"
 
 ENV_NAMES = ["maze", "miner", "coinrun", "fruitbot", "starpilot", "plunder", "leaper",
-             "bigfish", "dodgeball", "bossfight", "climber"]
+             "bigfish", "dodgeball", "bossfight", "climber", "ninja", "chaser", "heist",
+             "jumper", "caveflyer"]
 
 # Python-only "exploration" distribution mode fixes one hard level
 # (reference: procgen/env.py:52-61).

@@ -4,8 +4,9 @@ The recordings in tests/data/conformance/*.json come from the C++ engine
 (the format tools/conformance.py of the JAX package reads): actions per
 step, and per step the rewards, firsts, level seeds, previous-level info
 and latents.  ``replay`` steps a ``ProcgenGym3Env`` of the port (on the
-card unless ``device="cpu"``) with the recorded actions and returns the
-first divergence, or None.  Every comparison is exact.
+card unless ``device="cpu"``; a joint env for a comma-separated
+``env_name``) with the recorded actions and returns the first divergence,
+or None.  Every comparison is exact.
 """
 
 from __future__ import annotations
@@ -65,7 +66,9 @@ def replay(rec: dict, device="cuda") -> dict:
         **rec.get("options", {}),
     )
     vec = env._vec
-    wmax = int(vec.game.WORLD_DIM_MAX[0])
+    # joint recordings (a comma-separated env_name) carry no latents
+    game = getattr(vec, "game", None)
+    wmax = int(game.WORLD_DIM_MAX[0]) if game is not None else 0
     with_exit = rec["env_name"] == "miner"
     result = {"steps": T, "checked": 0, "first_divergence": None}
 
@@ -77,7 +80,7 @@ def replay(rec: dict, device="cuda") -> dict:
         return result
 
     def info_np():
-        info = vec._info_impl(vec.states)
+        info = vec.observe()[3]
         return {k: v.cpu().numpy() for k, v in info.items()}
 
     info = info_np()

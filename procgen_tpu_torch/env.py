@@ -1,14 +1,16 @@
 """User-facing vectorized env API (reference: procgen/env.py); the
-counterpart of ``procgen_tpu.env`` for one game, with a ``device=``
-keyword that defaults to ``"cuda"`` (without a card construction raises;
-pass ``device="cpu"`` to run on the CPU).  ``ProcgenGym3Env`` mirrors the
-gym3 surface (observe / act / get_info / keys_to_act / callmethod
-``set_latent_state``); ``ProcgenEnv`` is the baselines-VecEnv-style
-wrapper.  The games that force the static camera (plunder, leaper,
-bigfish, bossfight, chaser) keep it under the gym3 default
-``center_agent=True``.  Not
-ported yet: ``render_mode="rgb_array"``, get_state / set_state, joint
-games (ROADMAP.md Queue 1).
+counterpart of ``procgen_tpu.env``, with a ``device=`` keyword that
+defaults to ``"cuda"`` (without a card construction raises; pass
+``device="cpu"`` to run on the CPU).  ``ProcgenGym3Env`` mirrors the gym3
+surface: observe / act / get_info / keys_to_act, get_state / set_state
+(per-env state blobs, byte-compatible with the JAX package's), callmethod
+``get_state`` / ``set_state`` / ``set_latent_state``, ``render_mode=
+"rgb_array"`` (the 512x512 frame in ``info["rgb"]``) and joint games (a
+comma-separated ``env_name``; env n runs game n % k).  ``ProcgenEnv`` is
+the baselines-VecEnv-style wrapper.  The games that force the static
+camera (plunder, leaper, bigfish, bossfight, chaser) keep it under the
+gym3 default ``center_agent=True``.  Not ported: the multi-device mesh
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 
 from .core.options import VecOptions, parse_game_options
 from .games.registry import make_game
-from .parallel.vec import TorchVecGame
+from .parallel.vec import JointTorchVecGame, TorchVecGame
 
 
 def create_random_seed():
@@ -71,10 +73,12 @@ class BaseProcgenEnv:
         self.combos = self.get_combos()
         self.num = num
         self.env_name = env_name
-        if render_mode is not None:
-            raise NotImplementedError("render_mode is not ported yet")
-        if "," in env_name:
-            raise NotImplementedError("joint games are not ported yet")
+        if render_mode is None:
+            render_human = False
+        elif render_mode == "rgb_array":
+            render_human = True
+        else:
+            raise ValueError(f"invalid render mode {render_mode}")
         if rand_seed is None:
             rand_seed = create_random_seed()
 
@@ -85,18 +89,19 @@ class BaseProcgenEnv:
                 "debug_mode": debug_mode,
             }
         )
-        opts = VecOptions(dict(options))
-        game_options, game_type = parse_game_options(env_name, opts)
-        game = make_game(env_name, game_options)
-        game.game_type = game_type
-        self._vec = TorchVecGame(
-            num=num,
-            game=game,
-            rand_seed=rand_seed,
-            num_levels=num_levels,
-            start_level=start_level,
-            device=device,
-        )
+        games = []
+        for name in env_name.split(","):  # joint-game mode (vecgame.cpp:343-347)
+            opts = VecOptions(dict(options))
+            game_options, game_type = parse_game_options(name, opts)
+            game = make_game(name, game_options)
+            game.game_type = game_type
+            games.append(game)
+        kw = dict(rand_seed=rand_seed, num_levels=num_levels,
+                  start_level=start_level, render_human=render_human, device=device)
+        if len(games) == 1:
+            self._vec = TorchVecGame(num=num, game=games[0], **kw)
+        else:
+            self._vec = JointTorchVecGame(num=num, games=games, **kw)
         self.options = options
 
     # -- gym3 surface -------------------------------------------------------
@@ -121,13 +126,24 @@ class BaseProcgenEnv:
         return [{k: v[i] for k, v in info.items()} for i in range(self.num)]
 
     def callmethod(self, method: str, *args):
-        """env.py callmethod: ``set_latent_state`` (miner) is ported;
-        get_state / set_state are not yet."""
+        if method == "get_state":
+            return self.get_state()
+        if method == "set_state":
+            return self.set_state(*args)
         if method == "set_latent_state":
             return self._vec.set_latent_state(*args)
-        if method in ("get_state", "set_state"):
-            raise NotImplementedError(f"{method} is not ported yet")
         raise AttributeError(f"unknown method {method}")
+
+    # -- checkpointing ------------------------------------------------------
+
+    def get_state(self):
+        """Per-env opaque state blobs (utils/serialization.py)."""
+        return self._vec.get_state_blobs()
+
+    def set_state(self, states):
+        if len(states) != self.num:
+            raise ValueError(f"need {self.num} state blobs, got {len(states)}")
+        self._vec.set_state_blobs(states)
 
     def get_combos(self):
         return get_combos()
@@ -227,8 +243,11 @@ class _ToBaselinesVecEnv:
         return self.step_wait()
 
     def render(self, mode="human"):
+        info = self.env.get_info()[0]
         _, ob, _ = self.env.observe()
         if mode == "rgb_array":
+            if "rgb" in info:
+                return info["rgb"]
             return ob["rgb"][0]
 
     def close(self):
